@@ -27,9 +27,27 @@ Phases, each of which fails the run on error:
 5. Run the 2-layer gcn-paper forward over the ogbn-arxiv-scale graph
    (169,343 nodes, 1,166,243 edges, power-law, GCN-normalised), time it,
    and check it against the plain forward as in phase 4.
+6. Dense-block graphs: the reference kernel benchmark's own graph
+   (``powerlaw_edges``, 2,048 nodes, 1,000,000 edges) and a mixed one
+   (8,192 nodes, 4,000,000 edges), GCN-normalised and planned with
+   ``bucket_caps="auto"`` at T = 64 (and the first at T = 128), plus the
+   single-cap plans the kernel benchmark runs the scalar body on.  Hold
+   the vector body (dense-tile branch included) and the scalar body
+   against their plain versions on them, as in phase 2.
+7. Time those chains: kernel, plain version, ``torch.sparse.mm``, the
+   bound, and the same chain with the dense branch off
+   (``dense_threshold=cap``); per segment, dense against gather.
+8. The gcn-paper forward and 20 SGD steps of training on the 8,192-node
+   graph, through the kernels and the autograd Function: step 0's
+   gradients are held against plain autograd through the plain version
+   (within 1e-4 of each gradient's largest magnitude), and so are the
+   arxiv-scale graph's; the loss must fall.
+9. The scalar body through the public op (``body="scalar"``).
 
-The line before the last is a JSON object with the kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+Each of phases 4, 5, 8 and 9 sets the kernels' launch counts to 0 just
+before it and reads them just after.  The line before the last is a JSON
+object with each kernel's numbers; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -48,8 +66,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/scv_spmm/csrc/scv_spmm.cu"
 REPLACES = "src/repro/kernels/scv_spmm/scv_spmm.py:197"
+REPLACES_DENSE = "src/repro/kernels/scv_spmm/scv_spmm.py:169"
+REPLACES_SCALAR = "src/repro/kernels/scv_spmm/scv_spmm.py:57"
 ARXIV_SEED = 0
 SERVE_REQUESTS = 128
+# dense-block graphs (nodes, edges): the reference kernel benchmark's own
+# (benchmarks/kernel_bench.py:48-49), and a mixed regime where about half
+# of the tiles and of the entries take the dense branch
+REF_DENSE = (2048, 1_000_000)
+MIXED_DENSE = (8192, 4_000_000)
+TRAIN_STEPS = 20
+TRAIN_LR = 2.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -126,6 +153,22 @@ def chain_bounds(plan, entries, n_feat: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def with_integer_vals(plan, gen, dev):
+    """``plan`` with integer values in -4..4 in every slot (sums exact in
+    f32, so any order gives the same bits)."""
+    def ints(s):
+        return dataclasses.replace(s, vals=torch.randint(
+            -4, 5, tuple(s.vals.shape), generator=gen).float().to(dev))
+    if hasattr(plan, "segments"):
+        return dataclasses.replace(plan, segments=tuple(ints(s) for s in plan.segments))
+    return ints(plan)
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """Largest absolute difference, and the plain output's largest magnitude."""
+    return (got - want).abs().max().item(), want.abs().max().item()
+
+
 def latency_line(reqs) -> str:
     """Median and p90 request latency: with 128 requests, p90 is the
     highest percentile that has at least ten samples beyond it."""
@@ -158,9 +201,10 @@ def main() -> int:
         build_default_engine, default_pool, make_requests, poisson_arrivals,
         run_open_loop,
     )
-    from repro_torch.models.gnn import build_graph, gnn_forward, init_gnn
+    from repro_torch.core.scv import coo_to_scv_tiles, dense_tile_threshold, plan_from_tiles
+    from repro_torch.models.gnn import build_graph, gnn_forward, gnn_loss, init_gnn
     from repro_torch.serve.graph_engine import plan_launches
-    from repro_torch.simul.datasets import TABLE_I, gcn_normalize, powerlaw_graph
+    from repro_torch.simul.datasets import TABLE_I, gcn_normalize, powerlaw_edges, powerlaw_graph
     from repro_torch.tune.config import TunedConfig
 
     t_start = time.perf_counter()
@@ -223,10 +267,7 @@ def main() -> int:
     max_abs_err = 0.0
     for name, (g, _) in shapes.items():
         n_cols = g.plan.shape[1]
-        int_plan = dataclasses.replace(g.plan, segments=tuple(
-            dataclasses.replace(s, vals=torch.randint(
-                -4, 5, tuple(s.vals.shape), generator=gen).float().to(dev))
-            for s in g.plan.segments))
+        int_plan = with_integer_vals(g.plan, gen, dev)
         for f in (cfg.d_hidden, cfg.n_classes):
             z_int = torch.randint(-4, 5, (n_cols, f), generator=gen).float().to(dev)
             z = torch.randn((n_cols, f), generator=gen).to(dev)
@@ -318,7 +359,7 @@ def main() -> int:
     reqs = make_requests(np.random.default_rng(2), pool, SERVE_REQUESTS, cfg.d_in)
     for r in reqs:
         engine.submit(r)
-    kmod.launches = 0
+    kmod.reset_counts()
     t0 = time.perf_counter()
     engine.run()
     wall = time.perf_counter() - t0
@@ -339,7 +380,7 @@ def main() -> int:
     rng2 = np.random.default_rng(3)
     reqs2 = make_requests(rng2, pool, SERVE_REQUESTS, cfg.d_in)
     arrivals = poisson_arrivals(rng2, SERVE_REQUESTS, rate)
-    kmod.launches = 0
+    kmod.reset_counts()
     stats = run_open_loop(engine2, reqs2, arrivals, mode="async")
     async_launches = kmod.launches
     m2 = engine2.metrics()
@@ -363,7 +404,7 @@ def main() -> int:
         out = gnn_forward(params, cfg, arxiv, x)
         torch.cuda.synchronize()
         reps = 5
-        kmod.launches = 0
+        kmod.reset_counts()
         t0 = time.perf_counter()
         for _ in range(reps):
             out = gnn_forward(params, cfg, arxiv, x)
@@ -385,15 +426,234 @@ def main() -> int:
           f"(host clock, {reps} forwards), {fwd_launches // reps} kernel launches each, "
           f"max abs err vs plain forward {err:.3e} (max |plain| {scale:.3e})")
 
+    # -- 6. dense-block graphs: kernel == plain version ----------------------
+    def dense_counts(plan) -> list[int]:
+        """Tiles per segment that take the dense branch (a host read, off
+        every timed and counted path)."""
+        return [int((s.nnz_in_tile > dense_tile_threshold(s.tile)).sum().item())
+                for s in getattr(plan, "segments", (plan,))]
+
+    dense_adj, vector_plans = {}, {}
+    for n, m in (REF_DENSE, MIXED_DENSE):
+        t0 = time.perf_counter()
+        adj = gcn_normalize(powerlaw_edges(n, m, seed=0))
+        t1 = time.perf_counter()
+        g = build_graph(adj, bucket_caps="auto", with_edges=False, device=dev)
+        torch.cuda.synchronize()
+        name = f"{n}/{m}"
+        dense_adj[name] = (adj, g)
+        vector_plans[f"{name} T=64"] = g.plan
+        print(f"[dense] {name}: nnz {adj.nnz} (generated in {t1 - t0:.2f} s, planned "
+              f"and copied in {time.perf_counter() - t1:.2f} s), ladder {g.plan.caps}, "
+              f"tiles {[s.n_tiles for s in g.plan.segments]}, dense tiles "
+              f"{dense_counts(g.plan)} (threshold {dense_tile_threshold(64)})")
+    ref_name = f"{REF_DENSE[0]}/{REF_DENSE[1]}"
+    ref_adj, ref_g = dense_adj[ref_name]
+    g128 = build_graph(ref_adj, tile=128, bucket_caps="auto", with_edges=False, device=dev)
+    vector_plans[f"{ref_name} T=128"] = g128.plan
+    print(f"[dense] {ref_name} at T=128: ladder {g128.plan.caps}, tiles "
+          f"{[s.n_tiles for s in g128.plan.segments]}, dense tiles {dense_counts(g128.plan)} "
+          f"(threshold {dense_tile_threshold(128)})")
+    # the scalar body's plans, as benchmarks/kernel_bench.py:114-116 builds them
+    scalar_plans = {
+        f"{ref_name} T={t} cap {caps[-1]}": plan_from_tiles(
+            coo_to_scv_tiles(ref_adj, t, cap=caps[-1]), with_perm=False, device=dev)
+        for t, caps in ((64, ref_g.plan.caps), (128, g128.plan.caps))
+    }
+    torch.cuda.synchronize()
+
+    err_dense = err_scalar = 0.0
+    for body, plans in (("vector", vector_plans), ("scalar", scalar_plans)):
+        for name, plan in plans.items():
+            int_plan = with_integer_vals(plan, gen, dev)
+            for f in (cfg.d_hidden, cfg.n_classes):
+                z_int = torch.randint(-4, 5, (plan.shape[1], f), generator=gen).float().to(dev)
+                z = torch.randn((plan.shape[1], f), generator=gen).to(dev)
+                k_int = scv_spmm_plan(int_plan, z_int, body=body)
+                p_int = ref.scv_spmm_reference_plan(int_plan, z_int, body=body)
+                check(torch.equal(k_int, p_int),
+                      f"{body} {name} F={f}: integer inputs not bit-exact "
+                      f"(max err {(k_int - p_int).abs().max().item()})")
+                err, scale = rel_err(scv_spmm_plan(plan, z, body=body),
+                                     ref.scv_spmm_reference_plan(plan, z, body=body))
+                # the dense branch sums D @ Z in another order than the gather
+                check(err <= 1e-5 * scale, f"{body} {name} F={f}: max err {err} > 1e-5 * {scale}")
+                if body == "vector":
+                    err_dense = max(err_dense, err)
+                else:
+                    err_scalar = max(err_scalar, err)
+                print(f"[compare] {body} body {name} F={f}: integer bit-exact, normalised "
+                      f"max abs err {err:.3e} (max |plain| {scale:.3e})")
+    torch.cuda.synchronize()
+
+    # -- 7. dense-block timing ------------------------------------------------
+    dense_rows = {}
+    for name, plan in vector_plans.items():
+        entries = plan_entries(plan)
+        csr = csr_of(entries, (plan.padded_shape[0], plan.shape[1]), dev)
+        gather_thr = plan.caps[-1]  # no tile holds more: the branch never runs
+        for f in (cfg.d_hidden, cfg.n_classes):
+            z = torch.randn((plan.shape[1], f), generator=gen).to(dev)
+            ms = device_ms(lambda: scv_spmm_plan(plan, z), 20)
+            gather_ms = device_ms(lambda: scv_spmm_plan(plan, z, dense_threshold=gather_thr), 5)
+            plain_ms = device_ms(lambda: ref.scv_spmm_reference_plan(plan, z, body="vector"), 5)
+            lib_ms = device_ms(lambda: torch.sparse.mm(csr, z), 20)
+            bound_ms, bound_by = chain_bounds(plan, entries, f)
+            dense_rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[time] dense-block {name} F={f}: chain of {plan_launches(plan)} launches "
+                  f"{ms:.4f} ms, dense branch off {gather_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), plain {plain_ms:.4f} ms, torch.sparse.mm (CSR) {lib_ms:.4f} ms")
+            out = torch.zeros((plan.padded_shape[0], f), device=dev)
+            for j, s in enumerate(plan.segments):
+                n_dense = int((s.nnz_in_tile > dense_tile_threshold(s.tile)).sum().item())
+                if n_dense == 0:
+                    continue
+                seg = (s.tile_row, s.tile_col, s.nnz_in_tile, s.rows, s.cols, s.vals, z, out,
+                       s.runs)
+                seg_ms = {thr: device_ms(lambda thr=thr: kmod.scv_spmm_runs(
+                    *seg, tile=s.tile, accumulate=True, dense_threshold=thr), 5)
+                    for thr in (None, s.cap)}
+                print(f"[time]   segment {j} cap {s.cap}: {s.n_tiles} tiles ({n_dense} dense), "
+                      f"{s.runs.n_runs} runs, nnz {int(s.nnz_in_tile.sum().item())}: "
+                      f"dense branch {seg_ms[None]:.4f} ms, gather {seg_ms[s.cap]:.4f} ms")
+        del csr
+    scalar_rows = {}
+    for name, plan in scalar_plans.items():
+        entries = plan_entries(plan)
+        csr = csr_of(entries, (plan.padded_shape[0], plan.shape[1]), dev)
+        for f in (cfg.d_hidden, cfg.n_classes):
+            z = torch.randn((plan.shape[1], f), generator=gen).to(dev)
+            ms = device_ms(lambda: scv_spmm_plan(plan, z, body="scalar"), 5)
+            vec_ms = device_ms(lambda: scv_spmm_plan(plan, z), 20)
+            plain_ms = device_ms(lambda: ref.scv_spmm_reference_plan(plan, z, body="scalar"), 5)
+            lib_ms = device_ms(lambda: torch.sparse.mm(csr, z), 20)
+            bound_ms, bound_by = chain_bounds(plan, entries, f)
+            scalar_rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[time] scalar body {name} F={f}: {ms:.4f} ms, vector body on the same "
+                  f"plan {vec_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain "
+                  f"{plain_ms:.4f} ms, torch.sparse.mm (CSR) {lib_ms:.4f} ms")
+        del csr
+    torch.cuda.synchronize()
+
+    # -- 8. dense-block forward and training ----------------------------------
+    mixed_name = f"{MIXED_DENSE[0]}/{MIXED_DENSE[1]}"
+    _, mixed = dense_adj[mixed_name]
+    n_mixed = mixed.n_nodes
+    rng8 = np.random.default_rng(6)
+    x8 = torch.from_numpy(rng8.standard_normal((n_mixed, cfg.d_in), np.float32)).to(dev)
+    # labels a model of this shape can learn: the centred argmax of a
+    # teacher's plain forward (random labels on so smoothing a graph stay
+    # at log(classes) however the weights move)
+    teacher = init_gnn(torch.Generator().manual_seed(1), cfg, device=dev)
+    with torch.no_grad():
+        t_logits = plain_forward(teacher, mixed, x8)
+    labels8 = (t_logits - t_logits.mean(0, keepdim=True)).argmax(1)
+    mask8 = torch.ones(n_mixed, device=dev)
+
+    def plain_loss(params, g, x, labels):
+        logp = torch.log_softmax(plain_forward(params, g, x), dim=-1)
+        return -logp.gather(1, labels[:, None]).mean()  # mask all ones
+
+    def grad_check(g, x, labels, label):
+        """Step 0: the kernels' gradients against plain autograd through
+        the plain version; returns params, their flat list, loss, grads."""
+        params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+        names = [f"{layer}.{k}" for layer, ps in params.items() for k in ps]
+        flat = [p.requires_grad_(True) for ps in params.values() for p in ps.values()]
+        loss = gnn_loss(params, cfg, g, x, labels, torch.ones(g.n_nodes, device=dev))
+        grads = torch.autograd.grad(loss, flat)
+        want = torch.autograd.grad(plain_loss(params, g, x, labels), flat)
+        errs = {}
+        for name, a, b in zip(names, grads, want):
+            err, scale = rel_err(a, b)
+            # the backward's index_add_ sums with atomics, in no fixed order
+            check(err <= 1e-4 * scale, f"{label} grad {name}: max err {err} > 1e-4 * {scale}")
+            errs[name] = err / scale
+        print(f"[train] {label} step-0 gradients vs plain autograd, max err / max |grad|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        return params, flat, loss, grads
+
+    params8 = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    kmod.reset_counts()
+    with torch.inference_mode():
+        out8 = gnn_forward(params8, cfg, mixed, x8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out8 = gnn_forward(params8, cfg, mixed, x8)
+        torch.cuda.synchronize()
+        fwd8_ms = (time.perf_counter() - t0) * 1e3 / 3
+    params, flat, loss, grads = grad_check(mixed, x8, labels8, mixed_name)
+    losses = [loss.item()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        with torch.no_grad():
+            for p, d in zip(flat, grads):
+                p -= TRAIN_LR * d
+        loss = gnn_loss(params, cfg, mixed, x8, labels8, mask8)
+        grads = torch.autograd.grad(loss, flat)
+        losses.append(loss.item())
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    train_launches, train_dense = kmod.launches, kmod.dense_launches
+    forwards = 4 + 1 + TRAIN_STEPS  # timed forwards, step 0, the SGD steps
+    n_dense_segs = sum(1 for c in dense_counts(mixed.plan) if c)
+    check(train_launches == forwards * cfg.n_layers * plan_launches(mixed.plan),
+          f"dense-block drive launched {train_launches} kernels")
+    check(train_dense == forwards * cfg.n_layers * n_dense_segs > 0,
+          f"dense-block drive: {train_dense} launches took the dense branch")
+    check(tuple(out8.shape) == (n_mixed, cfg.n_classes) and bool(torch.isfinite(out8).all()),
+          "dense-block forward output shape/finiteness")
+    with torch.no_grad():
+        err, scale = rel_err(out8, plain_forward(params8, mixed, x8))
+    check(err <= 1e-4 * max(1.0, scale), f"dense-block forward off the plain forward: {err}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.1,
+          f"training loss did not fall: {losses}")
+    print(f"[dense] 2-layer gcn-paper forward on {mixed_name}: {fwd8_ms:.3f} ms per forward "
+          f"(host clock, 3 forwards), max abs err vs plain forward {err:.3e} "
+          f"(max |plain| {scale:.3e})")
+    print(f"[train] {mixed_name}: {TRAIN_STEPS} SGD steps at lr {TRAIN_LR}, {step_ms:.3f} ms "
+          f"per step (host clock: forward, backward, update), loss "
+          + " ".join(f"{v:.4f}" for v in losses[:: max(1, TRAIN_STEPS // 5)])
+          + f" -> {losses[-1]:.4f}; {train_launches} kernel launches over {forwards} "
+          f"forwards, {train_dense} of them with dense tiles")
+
+    arxiv_labels = torch.from_numpy(
+        np.random.default_rng(7).integers(0, cfg.n_classes, spec.nodes)).to(dev)
+    grad_check(arxiv, x, arxiv_labels, "arxiv")
+    torch.cuda.synchronize()
+
+    # -- 9. the scalar body through the public op ------------------------------
+    sc_name, sc_plan = next(iter(scalar_plans.items()))
+    z = torch.randn((sc_plan.shape[1], cfg.d_hidden), generator=gen).to(dev)
+    kmod.reset_counts()
+    out_sc = scv_spmm_plan(sc_plan, z, body="scalar")
+    torch.cuda.synchronize()
+    scalar_launches = kmod.scalar_launches
+    check(scalar_launches == plan_launches(sc_plan) and kmod.launches == 0,
+          f"scalar drive launched {scalar_launches} scalar, {kmod.launches} vector kernels")
+    err, scale = rel_err(out_sc, ref.scv_spmm_reference_plan(sc_plan, z, body="scalar"))
+    check(err <= 1e-5 * scale, f"scalar drive off the plain version: {err}")
+    print(f"[scalar] {sc_name} F={cfg.d_hidden} through scv_spmm_plan(body='scalar'): "
+          f"{scalar_launches} launch, max abs err {err:.3e}")
+
     main_row = rows[("serving composite", cfg.d_hidden)]
+    dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]
+    scalar_row = scalar_rows[(sc_name, cfg.d_hidden)]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "scv_spmm_runs", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": serve_launches,
-        "max_abs_err": max_abs_err, "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "scv_spmm_runs", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES, "launches": serve_launches, "max_abs_err": max_abs_err,
+         **main_row},
+        {"name": "scv_spmm_runs dense-tile branch", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES_DENSE, "launches": train_dense, "max_abs_err": err_dense,
+         **dense_row},
+        {"name": "scv_spmm_runs_scalar", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES_SCALAR, "launches": scalar_launches,
+         "max_abs_err": err_scalar, **scalar_row},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

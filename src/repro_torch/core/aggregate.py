@@ -4,7 +4,7 @@ Port of the plan path of ``src/repro/core/aggregate.py``:
 
 * ``aggregate_scv_plan`` — the SCV kernel over an ``SCVPlan`` or
   ``SCVBucketedPlan`` (the CUDA kernel for CUDA tensors, its plain version
-  for CPU tensors);
+  for CPU tensors), differentiable in ``z`` and in the plan's values;
 * ``aggregate_coo_segsum`` — row-major gather + ``index_add_`` over COO
   arrays, independent of the SCV layout: the tests' oracle.
 """
@@ -29,5 +29,7 @@ def aggregate_coo_segsum(
 
 
 def aggregate_scv_plan(p, z: torch.Tensor) -> torch.Tensor:
-    """SCV aggregation over a plan; returns ``[p.shape[0], F]``."""
+    """SCV aggregation over a plan; returns ``[p.shape[0], F]``.  Gradients
+    reach ``z`` and the plan's values (GAT's re-weighted ones among them)
+    through ``ops.scv_spmm_plan``'s autograd Function."""
     return scv_spmm_plan(p, z)[: p.shape[0]]

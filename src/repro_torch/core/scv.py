@@ -267,14 +267,17 @@ class RunIndex:
     owns that block-row's output strip alone — so no two blocks may share
     a block-row, and :meth:`of` refuses a schedule that visits a block-row
     in two runs.  Computed on the host where plans are built, never by a
-    device->host read at launch time.
+    device->host read at launch time.  ``max_nnz``, the heaviest tile's
+    entry count, tells the launch wrapper on the host whether a tile takes
+    the kernel's dense branch.
     """
 
     ptr: torch.Tensor  # int32[n_runs + 1] — first tile of each run, then nt
     rows: np.ndarray  # int32[n_runs] — block-row of each run (host copy)
+    max_nnz: int
 
     @classmethod
-    def of(cls, tile_row: np.ndarray, device=None) -> "RunIndex":
+    def of(cls, tile_row: np.ndarray, nnz_in_tile: np.ndarray, device=None) -> "RunIndex":
         tr = np.asarray(tile_row)
         nt = tr.shape[0]
         start = (
@@ -288,7 +291,9 @@ class RunIndex:
                 "tiles of one block-row must be consecutive"
             )
         ptr = np.append(start, nt).astype(np.int32)
-        return cls(ptr=_tensor(ptr, device), rows=rows)
+        nnz = np.asarray(nnz_in_tile)
+        max_nnz = int(nnz.max()) if nnz.size else 0
+        return cls(ptr=_tensor(ptr, device), rows=rows, max_nnz=max_nnz)
 
     @property
     def n_runs(self) -> int:
@@ -402,7 +407,7 @@ def plan_from_tiles(
         cap=t.cap,
         shape=t.shape,
         order=t.order,
-        runs=RunIndex.of(tr, device),
+        runs=RunIndex.of(tr, nz, device),
     )
 
 

@@ -28,9 +28,10 @@ NVCC_FLAGS = (
 
 @dataclasses.dataclass(frozen=True)
 class KernelLibrary:
-    """The loaded library: the bound C entry point and how it was built."""
+    """The loaded library: the bound C entry points and how it was built."""
 
-    scv_spmm_runs: ctypes._CFuncPtr
+    scv_spmm_runs: ctypes._CFuncPtr  # vector body (sparse and dense branches)
+    scv_spmm_runs_scalar: ctypes._CFuncPtr  # scalar body
     path: Path
     build_seconds: float  # 0.0 when an existing library was loaded
     build_log: str  # nvcc / ptxas output (registers, shared memory, spills)
@@ -76,8 +77,10 @@ def load_library() -> KernelLibrary:
             target = BUILD_DIR / f"libscv_spmm_{digest}.so"
             seconds, log = (0.0, "") if target.exists() else _build(target)
             lib = ctypes.CDLL(str(target))
-            fn = lib.scv_spmm_runs
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _loaded = KernelLibrary(fn, target, seconds, log)
+            vector, scalar = lib.scv_spmm_runs, lib.scv_spmm_runs_scalar
+            # nine device pointers, the ints, then the stream
+            vector.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            scalar.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            vector.restype = scalar.restype = ctypes.c_int
+            _loaded = KernelLibrary(vector, scalar, target, seconds, log)
         return _loaded

@@ -1,10 +1,13 @@
-"""Launch wrapper for the SCV SpMM CUDA kernel (``csrc/scv_spmm.cu``).
+"""Launch wrapper for the SCV SpMM CUDA kernels (``csrc/scv_spmm.cu``).
 
 Counterpart of ``scv_spmm_pallas`` (``src/repro/kernels/scv_spmm/
 scv_spmm.py:197``).  One call computes one segment of a plan into ``out``
 in place: ``out = A_seg @ Z`` on the rows the segment visits, or, with
 ``accumulate=True``, ``out += A_seg @ Z`` there (the TPU kernel's aliased
 ``acc`` operand).  Rows the segment does not visit keep their contents.
+``body="vector"`` runs the vector body (sparse gather branch, and the
+dense-tile branch for tiles over ``dense_threshold``); ``body="scalar"``
+the per-entry scalar body.
 
 Dispatch is by device: a CUDA tensor launches the kernel on the current
 stream or raises; a CPU tensor takes the plain version (``ref.py``).
@@ -20,28 +23,56 @@ import torch
 from repro_torch.kernels.scv_spmm import ref
 from repro_torch.kernels.scv_spmm.build import load_library
 
-#: Kernel launches since the count was last set to 0.  A plain int: it
+#: Kernel launches since the counts were last set to 0.  Plain ints: each
 #: rises by one for each launch that the kernel accepted, and nowhere else
 #: (the CPU path and a refused launch add nothing).
+#: ``launches`` counts the vector body (kernel table rows 1 and 2),
+#: ``dense_launches`` those of its launches in which a tile took the dense
+#: branch (row 3; they count in ``launches`` too), ``scalar_launches`` the
+#: scalar body (row 4).
 launches = 0
+dense_launches = 0
+scalar_launches = 0
 
 MAX_THREADS = 128  # feature columns per block; one thread per column
 SMEM_BYTES = 48 * 1024  # shared memory a block gets without opting in
+SMEM_OPT_IN_BYTES = 227 * 1024  # the most a block may opt in to (H100)
+SCALAR_STAGE = 256  # entries the scalar body stages in shared memory at a time
+BODIES = ("vector", "scalar")
 
 
-def threads_for(n_feat: int, tile: int) -> int:
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    global launches, dense_launches, scalar_launches
+    launches = dense_launches = scalar_launches = 0
+
+
+def extra_smem(tile: int, body: str, dense: bool) -> int:
+    """Shared memory a block needs beside its strip: D (``tile x ldd``
+    f32, ``ldd`` = tile rounded up to 4) when the dense branch runs, the
+    staged entries for the scalar body."""
+    if body == "scalar":
+        return 12 * SCALAR_STAGE
+    return 4 * tile * (-(-tile // 4) * 4) if dense else 0
+
+
+def threads_for(n_feat: int, tile: int, extra: int = 0) -> int:
     """Threads per block: the feature width rounded up to whole warps, at
     most ``MAX_THREADS``, shrunk until the ``tile x threads`` f32 strip
-    fits in shared memory."""
-    threads = min(MAX_THREADS, -(-n_feat // 32) * 32)
-    while threads > 32 and tile * threads * 4 > SMEM_BYTES:
-        threads -= 32
-    if tile * threads * 4 > SMEM_BYTES:
-        raise ValueError(
-            f"tile {tile} needs a {tile}x32 f32 strip of {tile * 128} bytes, "
-            f"more than the {SMEM_BYTES} bytes of shared memory a block gets"
-        )
-    return threads
+    and ``extra`` bytes fit the 48 KB a block gets by default.  Where no
+    width fits (a large tile with the dense branch's D), the full width
+    opts in to more shared memory, up to ``SMEM_OPT_IN_BYTES``."""
+    full = min(MAX_THREADS, -(-n_feat // 32) * 32)
+    for threads in range(full, 0, -32):
+        if tile * threads * 4 + extra <= SMEM_BYTES:
+            return threads
+    if tile * full * 4 + extra <= SMEM_OPT_IN_BYTES:
+        return full
+    raise ValueError(
+        f"tile {tile} needs {tile * full * 4 + extra} bytes of shared memory "
+        f"(strip and {extra} more), over the {SMEM_OPT_IN_BYTES} a block may "
+        "opt in to"
+    )
 
 
 def _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile):
@@ -80,6 +111,8 @@ def _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile
     n_runs = runs.rows.shape[0]
     if runs.ptr.shape != (n_runs + 1,) or (nt > 0) != (n_runs > 0):
         raise ValueError(f"run index of {n_runs} runs does not fit {nt} tiles")
+    if runs.max_nnz > vals.shape[1]:
+        raise ValueError(f"a tile holds {runs.max_nnz} entries, over the cap {vals.shape[1]}")
     if n_runs:
         if np.unique(runs.rows).size != n_runs:
             # two blocks would own one output strip and race on it
@@ -101,19 +134,32 @@ def scv_spmm_runs(
     *,
     tile: int,
     accumulate: bool,
+    body: str = "vector",
+    dense_threshold: int | None = None,
 ) -> torch.Tensor:
     """One SCV SpMM over one plan segment, into ``out``; returns ``out``.
 
     ``z`` must hold every column the entries name (``z.shape[0]`` at least
     the plan's column count); the caller guarantees it, as
-    ``ops.scv_spmm_plan`` does."""
-    global launches
+    ``ops.scv_spmm_plan`` does.  ``dense_threshold`` (vector body only;
+    ``None``: the reference's ``dense_tile_threshold(tile)``) sends each
+    tile with ``nnz > dense_threshold >= 0`` through the dense branch; a
+    negative one turns the branch off.  Whether a tile of the launch does
+    so is read on the host from ``runs.max_nnz``."""
+    global launches, dense_launches, scalar_launches
+    if body not in BODIES:
+        raise ValueError(f"unknown kernel body {body!r}")
     _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile)
+    if dense_threshold is None:
+        from repro_torch.core.scv import dense_tile_threshold
+
+        dense_threshold = dense_tile_threshold(tile)
+    dense = body == "vector" and 0 <= dense_threshold < runs.max_nnz
     if z.device.type == "cpu":
-        part = ref.scv_spmm_reference(
-            tile_row, tile_col, rows, cols, vals, z,
-            tile=tile, n_rows=out.shape[0], nnz_in_tile=nnz_in_tile,
-        )
+        kw = dict(tile=tile, n_rows=out.shape[0], nnz_in_tile=nnz_in_tile)
+        args = (tile_row, tile_col, rows, cols, vals, z)
+        part = (ref.scv_spmm_vector_reference(*args, dense_threshold=dense_threshold, **kw)
+                if dense else ref.scv_spmm_reference(*args, **kw))
         # the kernel leaves unvisited rows as they were; the plain version
         # writes zeros there, which is what a covered first segment gives
         return out.add_(part) if accumulate else out.copy_(part)
@@ -123,20 +169,28 @@ def scv_spmm_runs(
     n_feat = z.shape[1]
     if n_runs == 0 or n_feat == 0:
         return out
-    threads = threads_for(n_feat, tile)
+    threads = threads_for(n_feat, tile, extra_smem(tile, body, dense))
     lib = load_library()
+
     def ptr(t: torch.Tensor) -> ctypes.c_void_p:
         return ctypes.c_void_p(t.data_ptr())
 
+    pointers = (ptr(tile_row), ptr(tile_col), ptr(nnz_in_tile), ptr(rows), ptr(cols),
+                ptr(vals), ptr(runs.ptr), ptr(z), ptr(out))
+    ints = (n_runs, vals.shape[1], n_feat, tile, threads, int(accumulate))
     with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = lib.scv_spmm_runs(
-            ptr(tile_row), ptr(tile_col), ptr(nnz_in_tile), ptr(rows), ptr(cols),
-            ptr(vals), ptr(runs.ptr), ptr(z), ptr(out),
-            n_runs, vals.shape[1], n_feat, tile, threads, int(accumulate),
-            ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream)
+        if body == "scalar":
+            rc = lib.scv_spmm_runs_scalar(*pointers, *ints, stream)
+        else:
+            # D is given room only when a tile of this launch is dense
+            rc = lib.scv_spmm_runs(*pointers, *ints, z.shape[0],
+                                   dense_threshold if dense else -1, stream)
     if rc != 0:
-        raise RuntimeError(f"scv_spmm_runs launch failed with CUDA error {rc}")
-    launches += 1
+        raise RuntimeError(f"scv_spmm_runs ({body}) launch failed with CUDA error {rc}")
+    if body == "scalar":
+        scalar_launches += 1
+    else:
+        launches += 1
+        dense_launches += int(dense)
     return out

@@ -1,10 +1,11 @@
 """GNN model zoo (the paper's own family): GCN, GraphSAGE, GIN, GAT.
 
-Port of ``src/repro/models/gnn.py`` (forward only; training comes with
-the VJP slice).  Every model aggregates through ``core.aggregate.
-aggregate_scv_plan``, so on a CUDA graph every aggregation is the SCV
-kernel.  The combinations (``h @ W``) are plain ``torch.matmul``.  The
-port runs eagerly: there is no counterpart of ``gnn_forward_jit``.
+Port of ``src/repro/models/gnn.py``.  Every model aggregates through
+``core.aggregate.aggregate_scv_plan``, so on a CUDA graph every
+aggregation is the SCV kernel, and gradients flow back through it (the
+kernel chain is one ``torch.autograd.Function``): ``gnn_loss`` trains.
+The combinations (``h @ W``) are plain ``torch.matmul``.  The port runs
+eagerly: there is no counterpart of ``gnn_forward_jit``.
 
 Parameters are plain nested dicts of tensors, ``{"layer0": {"w": ...}}``,
 named as in the reference so :func:`params_from_jax` can carry the
@@ -245,6 +246,16 @@ def gnn_forward(params, cfg: GNNConfig, g: Graph, x: torch.Tensor) -> torch.Tens
         if i + 1 < cfg.n_layers:
             h = torch.relu(h)
     return h
+
+
+def gnn_loss(params, cfg: GNNConfig, g: Graph, x, labels, mask) -> torch.Tensor:
+    """Masked mean cross-entropy of the forward's logits (the reference's
+    ``gnn_loss``, ``src/repro/models/gnn.py:416``)."""
+    logits = gnn_forward(params, cfg, g, x)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -272,7 +272,7 @@ def _assemble_segment(
         cap=cap,
         shape=(pad_nodes, pad_nodes),
         order=order,
-        runs=RunIndex.of(tile_row, device),
+        runs=RunIndex.of(tile_row, nnz2, device),
     )
 
 

@@ -61,6 +61,34 @@ def powerlaw_graph(
     return COOMatrix(rows, cols, vals, (n, n))
 
 
+def powerlaw_edges(n: int, m: int, seed: int = 0, alpha: float = 2.1) -> COOMatrix:
+    """Exactly ``m`` unique edges with Zipf-weighted endpoints and integer
+    weights 1-3: the dense-block graph of the reference's kernel benchmark
+    (a copy of ``benchmarks/kernel_bench.py::powerlaw_edges``, same draws
+    for the same seed).
+
+    Unlike :func:`powerlaw_graph` it draws in rounds until ``m`` unique
+    pairs exist.  With ``m`` near ``n^2 / 4`` hub blocks fill whole tiles.
+    Small integer weights keep every partial sum exact in f32, so any
+    accumulation order gives the same bits.  A node may link to itself."""
+    rng = np.random.default_rng(seed)
+    w = (np.arange(1, n + 1, dtype=np.float64)) ** (-1.0 / (alpha - 1.0))
+    rng.shuffle(w)
+    p = w / w.sum()
+    keys: np.ndarray = np.zeros(0, np.int64)
+    while len(keys) < m:
+        draw = int((m - len(keys)) * 1.5) + 1024
+        src = rng.choice(n, size=draw, p=p)
+        dst = rng.choice(n, size=draw, p=p)
+        keys = np.unique(np.concatenate([keys, src.astype(np.int64) * n + dst]))
+    rng.shuffle(keys)
+    keys = keys[:m]
+    rows = (keys // n).astype(np.int32)
+    cols = (keys % n).astype(np.int32)
+    vals = rng.integers(1, 4, size=m).astype(np.float32)
+    return COOMatrix(rows, cols, vals, (n, n))
+
+
 def gcn_normalize(a: COOMatrix) -> COOMatrix:
     """Â = D^-1/2 (A + I) D^-1/2 — the weighted adjacency of GCN."""
     n = a.shape[0]

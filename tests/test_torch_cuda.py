@@ -1,4 +1,7 @@
-"""The SCV SpMM CUDA kernel against its plain version, on the card.
+"""The SCV SpMM CUDA kernels against their plain versions, on the card:
+the vector body (sparse branch, accumulate mode, dense-tile branch), the
+scalar body, the shared-memory opt-in at T = 128, a refused launch, and
+gradients through a CUDA forward.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -16,9 +19,10 @@ import torch
 from repro_torch.kernels.scv_spmm import ref
 from repro_torch.kernels.scv_spmm import scv_spmm as kmod
 from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
-from repro_torch.models.gnn import build_graph
+from repro_torch.core.scv import coo_to_scv_tiles, dense_tile_threshold, plan_from_tiles
+from repro_torch.models.gnn import GNNConfig, build_graph, gnn_loss, init_gnn
 from repro_torch.serve.graph_engine import assemble_batched_graph, plan_launches
-from repro_torch.simul.datasets import gcn_normalize, powerlaw_graph
+from repro_torch.simul.datasets import gcn_normalize, powerlaw_edges, powerlaw_graph
 
 
 @pytest.fixture
@@ -83,3 +87,92 @@ def test_accumulate_keeps_unvisited_rows(dev):
     visited = np.zeros(plan.n_row_blocks, bool)
     visited[s.runs.rows] = True
     assert visited.any()
+
+
+def _dense_block(dev, tile, scalar=False):
+    """A dense-block graph (integer weights 1-3, so every sum is exact):
+    at T = 64 every tile holds ~900 entries, over the threshold of 256;
+    at T = 128 ~3,700, over 1,024.  ``scalar``: the single-cap plan the
+    reference's kernel benchmark runs its scalar body on."""
+    adj = powerlaw_edges(512, 60_000, seed=1)
+    if scalar:
+        caps = build_graph(adj, tile=tile, bucket_caps="auto", device="cpu").plan.caps
+        return plan_from_tiles(coo_to_scv_tiles(adj, tile, cap=caps[-1]), with_perm=False,
+                               device=dev)
+    return build_graph(adj, tile=tile, bucket_caps="auto", with_edges=False, device=dev).plan
+
+
+@pytest.mark.parametrize("tile", [64, 128])  # 128: D alone is 64 KB, the kernel opts in
+@pytest.mark.parametrize("n_feat", [128, 40])
+def test_dense_branch_bit_exact_on_integers(dev, tile, n_feat):
+    plan = _dense_block(dev, tile)
+    thr = dense_tile_threshold(tile)
+    assert any(int((s.nnz_in_tile > thr).sum()) for s in plan.segments)
+    z = torch.randint(-4, 5, (plan.shape[1], n_feat),
+                      generator=torch.Generator().manual_seed(tile)).float().to(dev)
+    kmod.reset_counts()
+    got = scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert kmod.dense_launches > 0 and kmod.launches == plan_launches(plan)
+    assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="vector"))
+    # the same chain with the branch off takes the gather path: same bits
+    assert torch.equal(scv_spmm_plan(plan, z, dense_threshold=-1), got)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("n_feat", [128, 40])
+def test_scalar_body_bit_exact_on_integers(dev, tile, n_feat):
+    plan = _dense_block(dev, tile, scalar=True)
+    z = torch.randint(-4, 5, (plan.shape[1], n_feat),
+                      generator=torch.Generator().manual_seed(n_feat)).float().to(dev)
+    kmod.reset_counts()
+    got = scv_spmm_plan(plan, z, body="scalar")
+    torch.cuda.synchronize()
+    assert (kmod.scalar_launches, kmod.launches) == (1, 0)
+    assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="scalar"))
+
+
+def test_refused_launch_raises(dev, monkeypatch):
+    plan = _dense_block(dev, 64)
+    s = plan.segments[-1]
+    z = torch.zeros((plan.shape[1], 16), device=dev)
+    out = torch.zeros((plan.padded_shape[0], 16), device=dev)
+    monkeypatch.setattr(kmod, "threads_for", lambda *a: 160)  # over the kernel's 128
+    kmod.reset_counts()
+    for body in ("vector", "scalar"):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kmod.scv_spmm_runs(s.tile_row, s.tile_col, s.nnz_in_tile, s.rows, s.cols, s.vals,
+                               z, out, s.runs, tile=s.tile, accumulate=False, body=body)
+    assert (kmod.launches, kmod.dense_launches, kmod.scalar_launches) == (0, 0, 0)
+
+
+def test_cuda_forward_carries_gradients(dev):
+    """A loss on a CUDA forward differentiates through every aggregation
+    (the kernel's output has a grad_fn), and each parameter's gradient
+    matches plain autograd through the plain version on the card within
+    1e-4 of its largest magnitude (the backward's index_add_ sums with
+    atomics, in no fixed order)."""
+    adj = gcn_normalize(powerlaw_edges(512, 60_000, seed=2))
+    g = build_graph(adj, bucket_caps="auto", with_edges=False, device=dev)
+    cfg = GNNConfig(name="g", kind="gcn", d_in=32, d_hidden=64, n_classes=8)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((512, 32), np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 8, 512)).to(dev)
+    mask = torch.ones(512, device=dev)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    flat = [p.requires_grad_(True) for ps in params.values() for p in ps.values()]
+    kmod.reset_counts()
+    gnn_loss(params, cfg, g, x, labels, mask).backward()
+    assert kmod.launches == 2 * plan_launches(g.plan) and kmod.dense_launches > 0
+    got = [p.grad.clone() for p in flat]
+    assert params["layer0"]["w"].grad is not None
+
+    h = x
+    for i in range(cfg.n_layers):
+        h = ref.scv_spmm_reference_plan(g.plan, h @ params[f"layer{i}"]["w"])[: g.n_nodes]
+        if i + 1 < cfg.n_layers:
+            h = torch.relu(h)
+    logp = torch.log_softmax(h, -1)
+    plain = torch.autograd.grad(-logp.gather(1, labels[:, None]).mean(), flat)
+    for a, b in zip(got, plain):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()

@@ -40,8 +40,10 @@ def _imported_roots(path):
 
 def test_port_has_modules():
     names = {_module_name(p) for p in _port_files()}
-    assert {"repro_torch.kernels.scv_spmm.scv_spmm", "repro_torch.serve.graph_engine",
-            "repro_torch.launch.graph_serve"} <= names
+    assert {"repro_torch.kernels.scv_spmm.scv_spmm", "repro_torch.kernels.scv_spmm.ops",
+            "repro_torch.kernels.scv_spmm.ref", "repro_torch.kernels.scv_spmm.build",
+            "repro_torch.models.gnn", "repro_torch.simul.datasets",
+            "repro_torch.serve.graph_engine", "repro_torch.launch.graph_serve"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],
@@ -74,3 +76,16 @@ def test_chip_smoke_refuses_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_refuses(tmp_path):
+    """Copied into a directory that holds nothing else of the repo, the
+    script exits non-zero and prints no result."""
+    import shutil
+
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout

@@ -178,11 +178,11 @@ def test_run_index_marks_block_row_runs(composite):
 
 def test_run_index_refuses_split_block_row():
     with pytest.raises(ValueError, match="two separate runs"):
-        tscv.RunIndex.of(np.array([0, 0, 1, 0], np.int32))
-    ri = tscv.RunIndex.of(np.array([3, 3, 1, 1, 1, 2], np.int32))
-    assert ri.ptr.tolist() == [0, 2, 5, 6] and ri.rows.tolist() == [3, 1, 2]
-    empty = tscv.RunIndex.of(np.zeros(0, np.int32))
-    assert empty.n_runs == 0 and empty.ptr.tolist() == [0]
+        tscv.RunIndex.of(np.array([0, 0, 1, 0], np.int32), np.ones(4, np.int32))
+    ri = tscv.RunIndex.of(np.array([3, 3, 1, 1, 1, 2], np.int32), np.arange(6, dtype=np.int32))
+    assert ri.ptr.tolist() == [0, 2, 5, 6] and ri.rows.tolist() == [3, 1, 2] and ri.max_nnz == 5
+    empty = tscv.RunIndex.of(np.zeros(0, np.int32), np.zeros(0, np.int32))
+    assert empty.n_runs == 0 and empty.ptr.tolist() == [0] and empty.max_nnz == 0
 
 
 def test_plan_to_keeps_leaves_and_runs():

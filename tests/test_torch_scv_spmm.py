@@ -244,5 +244,5 @@ def test_threads_for_refuses_oversized_tile():
 
 
 def test_run_index_device_copy():
-    ri = RunIndex.of(np.array([0, 0, 2], np.int32), "cpu")
-    assert ri.ptr.tolist() == [0, 2, 3] and ri.ptr.device.type == "cpu"
+    ri = RunIndex.of(np.array([0, 0, 2], np.int32), np.array([1, 0, 3]), "cpu")
+    assert ri.ptr.tolist() == [0, 2, 3] and ri.ptr.device.type == "cpu" and ri.max_nnz == 3
