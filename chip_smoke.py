@@ -15,9 +15,13 @@ Phases, each of which fails the run on error:
    bit-exact on integer-valued values and Z; within 1e-5 of the plain
    output's largest magnitude with the GCN-normalised values and normal Z
    (the two sum in different orders).
-3. Time the kernel (whole chains and each segment launch), the plain
-   version and ``torch.sparse.mm`` on the same matrix in CSR, beside the
-   least time the card's memory rate allows for the same bytes.
+3. Time the kernel (whole chains and each segment launch, with each
+   segment's runs, work units, units in split runs and heaviest unit), the
+   plain version and ``torch.sparse.mm`` on the same matrix in CSR, beside
+   the least time the card's memory rate allows for the same bytes.  Run
+   the arxiv chain twice on the same inputs and require the same bits, and
+   time it with the run index rebuilt at other ``UNIT_WORK`` limits
+   (measured only; the constant does not change).
 4. Serve requests from the default hot-graph pool through
    ``GraphServeEngine(device="cuda")`` at gcn-paper widths (128/128/40):
    a burst through ``run()`` and an open-loop Poisson drive through the
@@ -36,7 +40,9 @@ Phases, each of which fails the run on error:
    against their plain versions on them, as in phase 2.
 7. Time those chains: kernel, plain version, ``torch.sparse.mm``, the
    bound, and the same chain with the dense branch off
-   (``dense_threshold=cap``); per segment, dense against gather.
+   (``dense_threshold=cap``); per segment, dense against gather; and the
+   T = 64 chains over a sweep of ``dense_threshold`` (measured only; the
+   default does not change).
 8. The gcn-paper forward and 20 SGD steps of training on the 8,192-node
    graph, through the kernels and the autograd Function: step 0's
    gradients are held against plain autograd through the plain version
@@ -75,6 +81,8 @@ SERVE_REQUESTS = 128
 # of the tiles and of the entries take the dense branch
 REF_DENSE = (2048, 1_000_000)
 MIXED_DENSE = (8192, 4_000_000)
+UNIT_WORK_SWEEP = (512, 1024, 2048, 4096, 8192)  # arxiv chain, measured only
+DENSE_THRESHOLD_SWEEP = (64, 128, 192, 256, 384, 512, 768)  # T = 64, measured only
 TRAIN_STEPS = 20
 TRAIN_LR = 2.0
 
@@ -193,6 +201,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import gcn_paper
+    from repro_torch.core import scv
     from repro_torch.kernels.scv_spmm import ref
     from repro_torch.kernels.scv_spmm import scv_spmm as kmod
     from repro_torch.kernels.scv_spmm.build import load_library
@@ -209,6 +218,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    unit_work = scv.UNIT_WORK
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -316,17 +326,45 @@ def main() -> int:
                     s.tile_row, s.tile_col, s.nnz_in_tile, s.rows, s.cols, s.vals,
                     z, out, s.runs, tile=s.tile, accumulate=acc), 10 if big else 50)
                 seg_bound = 1e3 * segment_bytes(s, f, acc) / HBM_BYTES_PER_S
-                # one block walks one run: the longest run sets the floor
+                # one block walks one work unit: the heaviest unit sets the floor
                 ptr = s.runs.ptr.cpu().numpy()
                 run_nnz = np.add.reduceat(s.nnz_in_tile.cpu().numpy(), ptr[:-1])
                 print(f"[time]   segment {j} cap {s.cap}: {s.n_tiles} tiles, "
                       f"{s.runs.n_runs} runs, nnz {int(run_nnz.sum())}, "
                       f"longest run {int(np.diff(ptr).max())} tiles / "
-                      f"{int(run_nnz.max())} nnz, accumulate={acc}: "
+                      f"{int(run_nnz.max())} nnz, {s.runs.n_units} units "
+                      f"({s.runs.n_split_units} in split runs, heaviest "
+                      f"{s.runs.max_unit_work} work), accumulate={acc}: "
                       f"{seg_ms:.4f} ms, bound {seg_bound:.4f} ms")
                 seeding = False
         del csr
     torch.cuda.synchronize()
+
+    # the arxiv chain twice on the same real-valued inputs: the same bits
+    # (split runs sum their partials in unit order, not with float atomics)
+    z = torch.randn((arxiv.plan.shape[1], cfg.d_hidden), generator=gen).to(dev)
+    first_out, second_out = scv_spmm_plan(arxiv.plan, z), scv_spmm_plan(arxiv.plan, z)
+    torch.cuda.synchronize()
+    check(torch.equal(first_out, second_out), "arxiv chain: two launches differ")
+    print(f"[determinism] arxiv F={cfg.d_hidden} chain twice: identical bits "
+          f"({sum(s.runs.n_split_units for s in arxiv.plan.segments)} units in split runs)")
+    # the same chain with the run index rebuilt at other unit limits
+    sweep = []
+    for limit in UNIT_WORK_SWEEP:
+        scv.UNIT_WORK = limit
+        plan = dataclasses.replace(arxiv.plan, segments=tuple(
+            dataclasses.replace(s, runs=scv.RunIndex.of(
+                s.tile_row.cpu().numpy(), s.nnz_in_tile.cpu().numpy(), dev))
+            for s in arxiv.plan.segments))
+        ms = device_ms(lambda: scv_spmm_plan(plan, z), 10)
+        err, scale = rel_err(scv_spmm_plan(plan, z), first_out)
+        check(err <= 1e-5 * scale, f"arxiv chain at UNIT_WORK {limit}: max err {err}")
+        sweep.append(f"{limit}: {ms:.4f} ms ({sum(s.runs.n_units for s in plan.segments)} "
+                     f"units, {sum(s.runs.n_split_units for s in plan.segments)} split)")
+    scv.UNIT_WORK = unit_work
+    del plan
+    print(f"[units] arxiv F={cfg.d_hidden} chain by UNIT_WORK (now {unit_work}): "
+          + "; ".join(sweep))
 
     # -- 4. serving --------------------------------------------------------------
     def plain_forward(params, g, x):
@@ -515,9 +553,19 @@ def main() -> int:
                     *seg, tile=s.tile, accumulate=True, dense_threshold=thr), 5)
                     for thr in (None, s.cap)}
                 print(f"[time]   segment {j} cap {s.cap}: {s.n_tiles} tiles ({n_dense} dense), "
-                      f"{s.runs.n_runs} runs, nnz {int(s.nnz_in_tile.sum().item())}: "
-                      f"dense branch {seg_ms[None]:.4f} ms, gather {seg_ms[s.cap]:.4f} ms")
+                      f"{s.runs.n_runs} runs, {s.runs.n_units} units ({s.runs.n_split_units} "
+                      f"in split runs, heaviest {s.runs.max_unit_work} work), nnz "
+                      f"{int(s.nnz_in_tile.sum().item())}: dense branch {seg_ms[None]:.4f} ms, "
+                      f"gather {seg_ms[s.cap]:.4f} ms")
         del csr
+        if plan.tile == 64:
+            # where the dense branch starts to pay on this card: measured only
+            z = torch.randn((plan.shape[1], cfg.d_hidden), generator=gen).to(dev)
+            nnz = np.concatenate([s.nnz_in_tile.cpu().numpy() for s in plan.segments])
+            sweep = [f"{thr}: {device_ms(lambda: scv_spmm_plan(plan, z, dense_threshold=thr), 5):.4f}"
+                     f" ms ({int((nnz > thr).sum())} dense)" for thr in DENSE_THRESHOLD_SWEEP]
+            print(f"[sweep] dense-block {name} F={cfg.d_hidden} chain by dense_threshold "
+                  f"(default {dense_tile_threshold(64)}): " + "; ".join(sweep))
     scalar_rows = {}
     for name, plan in scalar_plans.items():
         entries = plan_entries(plan)

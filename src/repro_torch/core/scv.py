@@ -8,7 +8,8 @@ Port of ``src/repro/core/scv.py``:
   :func:`coo_to_scv_tiles` with vectorized numpy, exactly as the reference.
 * :class:`SCVPlan` — the executable plan: the same arrays as torch tensors
   (coverage dummies appended, perm padded), plus the port-only
-  :class:`RunIndex` the CUDA kernel schedules its blocks by.
+  :class:`RunIndex` (block-row runs and their work units) the CUDA kernels
+  schedule their blocks by.
 * :class:`SCVBucketedPlan` — one ``SCVPlan`` segment per entry-capacity
   bucket; the kernel runs one launch per non-empty segment, chained
   through one output tensor.
@@ -258,23 +259,88 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return t if device is None else t.to(device)
 
 
+#: Most work (tiles + entries) one work unit of the CUDA vector body holds;
+#: a single heavier tile is a unit of its own.  Sized on the H100 (PERF.md).
+UNIT_WORK = 2048
+
+
+def _unit_spans(ptr: np.ndarray, nnz: np.ndarray, limit: int):
+    """Cut each run ``[ptr[r], ptr[r+1])`` into work units: consecutive tile
+    spans of at most ``limit`` work (one tile and its entries each), a tile
+    never split.  A run's trailing zero-nnz tiles lie in no unit; a run
+    with no entry keeps one empty unit at its start.  Returns the spans'
+    (begin, end), each unit's run and work, and whether its run has more
+    than one unit."""
+    starts, ends = ptr[:-1].astype(np.int64), ptr[1:].astype(np.int64)
+    nt = nnz.shape[0]
+    if nt == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z, np.zeros(0, bool)
+    last_live = np.maximum.reduceat(np.where(nnz > 0, np.arange(1, nt + 1), 0), starts)
+    live_end = np.maximum(last_live, starts)  # an all-zero run: an empty span
+    cw = np.concatenate([[0], np.cumsum(1 + nnz.astype(np.int64))])
+    run_work = cw[live_end] - cw[starts]
+    split = run_work > limit
+    begin, end, run = [starts], [live_end], [np.arange(starts.size)]
+    for r in np.flatnonzero(split):  # few runs: the hubs
+        b, stop, cuts = int(starts[r]), int(live_end[r]), []
+        while b < stop:
+            e = int(np.searchsorted(cw, cw[b] + limit, side="right")) - 1
+            e = min(max(e, b + 1), stop)
+            cuts.append((b, e))
+            b = e
+        c = np.array(cuts, np.int64)
+        begin.append(c[:, 0])
+        end.append(c[:, 1])
+        run.append(np.full(len(cuts), r))
+    keep = np.concatenate([~split, np.ones(sum(len(b) for b in begin[1:]), bool)])
+    begin, end, run = (np.concatenate(a)[keep] for a in (begin, end, run))
+    by_run = np.argsort(run, kind="stable")  # runs in order, each run's units in order
+    begin, end, run = begin[by_run], end[by_run], run[by_run]
+    # a run of one tile heavier than the limit is still one unit: not split
+    in_split_run = np.bincount(run, minlength=starts.size)[run] > 1
+    return begin, end, run, cw[end] - cw[begin], in_split_run
+
+
 @dataclasses.dataclass(frozen=True)
 class RunIndex:
-    """Block-row runs of one segment's tile schedule (port-only).
+    """Block-row runs of one segment's tile schedule, and their work units
+    (port-only).
 
     A run is a maximal stretch of consecutive tiles with the same
-    ``tile_row``.  The CUDA kernel gives each run one thread block, which
-    owns that block-row's output strip alone — so no two blocks may share
-    a block-row, and :meth:`of` refuses a schedule that visits a block-row
-    in two runs.  Computed on the host where plans are built, never by a
-    device->host read at launch time.  ``max_nnz``, the heaviest tile's
-    entry count, tells the launch wrapper on the host whether a tile takes
-    the kernel's dense branch.
+    ``tile_row``; :meth:`of` refuses a schedule that visits a block-row in
+    two runs.  The CUDA vector body schedules its thread blocks by *work
+    unit*: a consecutive span of one run's tiles holding at most
+    ``UNIT_WORK`` tiles plus entries (a heavier single tile is a unit of its
+    own), so a hub block-row's long run is shared by several blocks.  A run
+    of one unit has its strip to that unit's block alone; the units of a
+    split run each write a partial strip to scratch, and the last of them
+    to finish sums the seed and the partials in unit order, so the result
+    is deterministic.  A run's trailing zero-nnz tiles (the serving
+    composite's tile-count padding) lie in no unit; a run with no entry (a
+    coverage dummy) keeps one empty unit, so its strip is still written.
+    The scalar body keeps one block per run (``ptr``).
+
+    Everything is computed on the host where plans are built, never by a
+    device->host read at launch time: ``max_nnz`` (the heaviest tile's
+    entry count) tells the launch wrapper whether a tile takes the dense
+    branch, ``n_split_units`` how much scratch a launch needs.
     """
 
     ptr: torch.Tensor  # int32[n_runs + 1] — first tile of each run, then nt
     rows: np.ndarray  # int32[n_runs] — block-row of each run (host copy)
     max_nnz: int
+    units: torch.Tensor  # int32[n_units, 4] — first tile, end tile, run, scratch slot (-1: run not split)
+    unit_ptr: torch.Tensor  # int32[n_runs + 1] — first unit of each run, then n_units
+    order: torch.Tensor  # int32[n_units] — launch order of the units, heaviest first
+    unit_work: np.ndarray  # int64[n_units] — tiles + entries of each unit (host)
+    n_tiles: int
+    n_split_units: int  # units of runs cut into more than one (each has a scratch slot)
+    # per (device, feature blocks): the split runs' arrival counters, zeroed
+    # once; the kernel's last block of each run sets its counter back to 0
+    _counters: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
 
     @classmethod
     def of(cls, tile_row: np.ndarray, nnz_in_tile: np.ndarray, device=None) -> "RunIndex":
@@ -293,14 +359,50 @@ class RunIndex:
         ptr = np.append(start, nt).astype(np.int32)
         nnz = np.asarray(nnz_in_tile)
         max_nnz = int(nnz.max()) if nnz.size else 0
-        return cls(ptr=_tensor(ptr, device), rows=rows, max_nnz=max_nnz)
+        begin, end, run, work, split = _unit_spans(ptr, nnz, UNIT_WORK)
+        slot = np.full(run.size, -1, np.int64)
+        slot[split] = np.arange(int(split.sum()))
+        unit_ptr = np.searchsorted(run, np.arange(rows.size + 1)).astype(np.int32)
+        return cls(
+            ptr=_tensor(ptr, device),
+            rows=rows,
+            max_nnz=max_nnz,
+            units=_tensor(np.stack([begin, end, run, slot], 1).astype(np.int32), device),
+            unit_ptr=_tensor(unit_ptr, device),
+            order=_tensor(np.argsort(-work, kind="stable").astype(np.int32), device),
+            unit_work=work,
+            n_tiles=nt,
+            n_split_units=int(split.sum()),
+        )
 
     @property
     def n_runs(self) -> int:
         return int(self.rows.shape[0])
 
+    @property
+    def n_units(self) -> int:
+        return int(self.unit_work.shape[0])
+
+    @property
+    def max_unit_work(self) -> int:
+        return int(self.unit_work.max()) if self.unit_work.size else 0
+
+    def counters(self, device, n_fblocks: int) -> torch.Tensor:
+        """The split runs' arrival counters for launches on ``device`` with
+        ``n_fblocks`` feature blocks: int32 ``[n_runs * n_fblocks]``, zeroed
+        when first asked for and left at zero by every launch."""
+        key = (str(torch.device(device)), n_fblocks)
+        if key not in self._counters:
+            self._counters[key] = torch.zeros(
+                self.n_runs * n_fblocks, dtype=torch.int32, device=device
+            )
+        return self._counters[key]
+
     def to(self, device) -> "RunIndex":
-        return dataclasses.replace(self, ptr=self.ptr.to(device))
+        return dataclasses.replace(
+            self, ptr=self.ptr.to(device), units=self.units.to(device),
+            unit_ptr=self.unit_ptr.to(device), order=self.order.to(device),
+        )
 
 
 _LEAVES = ("tile_row", "tile_col", "rows", "cols", "vals", "nnz_in_tile", "perm")

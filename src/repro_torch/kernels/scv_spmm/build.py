@@ -78,8 +78,8 @@ def load_library() -> KernelLibrary:
             seconds, log = (0.0, "") if target.exists() else _build(target)
             lib = ctypes.CDLL(str(target))
             vector, scalar = lib.scv_spmm_runs, lib.scv_spmm_runs_scalar
-            # nine device pointers, the ints, then the stream
-            vector.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            # the device pointers, the ints, then the stream
+            vector.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             scalar.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             vector.restype = scalar.restype = ctypes.c_int
             _loaded = KernelLibrary(vector, scalar, target, seconds, log)

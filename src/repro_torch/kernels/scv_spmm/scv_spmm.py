@@ -38,6 +38,8 @@ MAX_THREADS = 128  # feature columns per block; one thread per column
 SMEM_BYTES = 48 * 1024  # shared memory a block gets without opting in
 SMEM_OPT_IN_BYTES = 227 * 1024  # the most a block may opt in to (H100)
 SCALAR_STAGE = 256  # entries the scalar body stages in shared memory at a time
+UNIT_ENTRIES = 256  # entries the vector body stages at a time (16 bytes each)
+UNIT_HEADERS = 256  # tile headers the vector body stages at a time
 BODIES = ("vector", "scalar")
 
 
@@ -47,31 +49,36 @@ def reset_counts() -> None:
     launches = dense_launches = scalar_launches = 0
 
 
-def extra_smem(tile: int, body: str, dense: bool) -> int:
-    """Shared memory a block needs beside its strip: D (``tile x ldd``
-    f32, ``ldd`` = tile rounded up to 4) when the dense branch runs, the
-    staged entries for the scalar body."""
+def smem_bytes(tile: int, threads: int, body: str = "vector", dense: bool = False) -> int:
+    """Shared memory one block of the kernel takes (the C entries' own
+    count): the ``tile x threads`` f32 strip, and for the vector body the
+    staged entries and headers, plus the dense branch's ``tile x threads``
+    f32 Z block when a tile of the launch is dense; for the scalar body its
+    staged entries."""
+    strip = 4 * tile * threads
     if body == "scalar":
-        return 12 * SCALAR_STAGE
-    return 4 * tile * (-(-tile // 4) * 4) if dense else 0
+        return strip + 12 * SCALAR_STAGE
+    headers = 4 * (5 * UNIT_HEADERS + 4)  # five header arrays, one a header longer, 3 counts
+    return strip * (2 if dense else 1) + 16 * UNIT_ENTRIES + headers
 
 
-def threads_for(n_feat: int, tile: int, extra: int = 0) -> int:
+def threads_for(n_feat: int, tile: int, body: str = "vector", dense: bool = False) -> int:
     """Threads per block: the feature width rounded up to whole warps, at
-    most ``MAX_THREADS``, shrunk until the ``tile x threads`` f32 strip
-    and ``extra`` bytes fit the 48 KB a block gets by default.  Where no
-    width fits (a large tile with the dense branch's D), the full width
-    opts in to more shared memory, up to ``SMEM_OPT_IN_BYTES``."""
+    most ``MAX_THREADS``.  The vector body keeps the full width, so that a
+    block stages its entries for as many columns as it can, and opts in to
+    more than 48 KB of shared memory where it needs to; it shrinks only
+    where the full width does not fit ``SMEM_OPT_IN_BYTES``.  The scalar
+    body keeps its measured configuration: the widest that fits the 48 KB
+    a block gets by default, else the widest that fits the opt-in."""
     full = min(MAX_THREADS, -(-n_feat // 32) * 32)
-    for threads in range(full, 0, -32):
-        if tile * threads * 4 + extra <= SMEM_BYTES:
-            return threads
-    if tile * full * 4 + extra <= SMEM_OPT_IN_BYTES:
-        return full
+    limits = (SMEM_BYTES, SMEM_OPT_IN_BYTES) if body == "scalar" else (SMEM_OPT_IN_BYTES,)
+    for limit in limits:
+        for threads in range(full, 0, -32):
+            if smem_bytes(tile, threads, body, dense) <= limit:
+                return threads
     raise ValueError(
-        f"tile {tile} needs {tile * full * 4 + extra} bytes of shared memory "
-        f"(strip and {extra} more), over the {SMEM_OPT_IN_BYTES} a block may "
-        "opt in to"
+        f"tile {tile} needs {smem_bytes(tile, 32, body, dense)} bytes of shared "
+        f"memory even at 32 threads, over the {SMEM_OPT_IN_BYTES} a block may opt in to"
     )
 
 
@@ -80,14 +87,16 @@ def _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile
     named = {
         "tile_row": tile_row, "tile_col": tile_col, "nnz_in_tile": nnz_in_tile,
         "rows": rows, "cols": cols, "vals": vals, "z": z, "out": out,
-        "runs.ptr": runs.ptr,
+        "runs.ptr": runs.ptr, "runs.units": runs.units, "runs.unit_ptr": runs.unit_ptr,
+        "runs.order": runs.order,
     }
     for name, t in named.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, z on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("tile_row", "tile_col", "nnz_in_tile", "rows", "cols", "runs.ptr"):
+    for name in ("tile_row", "tile_col", "nnz_in_tile", "rows", "cols", "runs.ptr",
+                 "runs.units", "runs.unit_ptr", "runs.order"):
         if named[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {named[name].dtype}")
     for name in ("vals", "z", "out"):
@@ -109,8 +118,14 @@ def _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile
     if out.shape[0] % tile:
         raise ValueError(f"out rows {out.shape[0]} not a multiple of tile {tile}")
     n_runs = runs.rows.shape[0]
-    if runs.ptr.shape != (n_runs + 1,) or (nt > 0) != (n_runs > 0):
-        raise ValueError(f"run index of {n_runs} runs does not fit {nt} tiles")
+    if runs.ptr.shape != (n_runs + 1,) or (nt > 0) != (n_runs > 0) or runs.n_tiles != nt:
+        raise ValueError(f"run index of {n_runs} runs over {runs.n_tiles} tiles does not fit "
+                         f"{nt} tiles")
+    n_units = runs.n_units
+    if (runs.units.shape != (n_units, 4) or runs.unit_ptr.shape != (n_runs + 1,)
+            or runs.order.shape != (n_units,) or n_units < n_runs
+            or not 0 <= runs.n_split_units <= n_units):
+        raise ValueError(f"unit index of {n_units} units does not fit {n_runs} runs")
     if runs.max_nnz > vals.shape[1]:
         raise ValueError(f"a tile holds {runs.max_nnz} entries, over the cap {vals.shape[1]}")
     if n_runs:
@@ -145,7 +160,10 @@ def scv_spmm_runs(
     ``None``: the reference's ``dense_tile_threshold(tile)``) sends each
     tile with ``nnz > dense_threshold >= 0`` through the dense branch; a
     negative one turns the branch off.  Whether a tile of the launch does
-    so is read on the host from ``runs.max_nnz``."""
+    so is read on the host from ``runs.max_nnz``.  The vector body launches
+    one block per (work unit, feature block) of ``runs``, the scalar body
+    one per (run, feature block).  Launches that share ``runs`` must be
+    ordered on one stream: the split runs' counters are the run index's."""
     global launches, dense_launches, scalar_launches
     if body not in BODIES:
         raise ValueError(f"unknown kernel body {body!r}")
@@ -165,27 +183,14 @@ def scv_spmm_runs(
         return out.add_(part) if accumulate else out.copy_(part)
     if z.device.type != "cuda":
         raise ValueError(f"no SCV SpMM kernel for device {z.device}")
-    n_runs = runs.rows.shape[0]
     n_feat = z.shape[1]
-    if n_runs == 0 or n_feat == 0:
+    if runs.n_runs == 0 or n_feat == 0:
         return out
-    threads = threads_for(n_feat, tile, extra_smem(tile, body, dense))
-    lib = load_library()
-
-    def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-        return ctypes.c_void_p(t.data_ptr())
-
-    pointers = (ptr(tile_row), ptr(tile_col), ptr(nnz_in_tile), ptr(rows), ptr(cols),
-                ptr(vals), ptr(runs.ptr), ptr(z), ptr(out))
-    ints = (n_runs, vals.shape[1], n_feat, tile, threads, int(accumulate))
     with torch.cuda.device(z.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream)
-        if body == "scalar":
-            rc = lib.scv_spmm_runs_scalar(*pointers, *ints, stream)
-        else:
-            # D is given room only when a tile of this launch is dense
-            rc = lib.scv_spmm_runs(*pointers, *ints, z.shape[0],
-                                   dense_threshold if dense else -1, stream)
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        rc = _launch(load_library(), tile_row, tile_col, nnz_in_tile, rows, cols, vals, z,
+                     out, runs, tile, accumulate, body, dense_threshold if dense else -1,
+                     stream)
     if rc != 0:
         raise RuntimeError(f"scv_spmm_runs ({body}) launch failed with CUDA error {rc}")
     if body == "scalar":
@@ -194,3 +199,35 @@ def scv_spmm_runs(
         launches += 1
         dense_launches += int(dense)
     return out
+
+
+def _launch(lib, tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile,
+            accumulate, body, dense_threshold, stream) -> int:
+    """One launch through the C entries; returns their CUDA error code.
+    ``dense_threshold`` is negative when no tile of the launch is dense,
+    and only then does the kernel keep no room for the Z block.  The vector
+    body's scratch (one partial strip per unit of a split run) is a
+    ``torch.empty`` on ``z``'s device; its counters are the run index's,
+    zeroed once per device and width."""
+    n_feat = z.shape[1]
+    dense = dense_threshold >= 0
+    threads = threads_for(n_feat, tile, body, dense)
+
+    def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    tiles = (ptr(tile_row), ptr(tile_col), ptr(nnz_in_tile), ptr(rows), ptr(cols), ptr(vals))
+    shape = (vals.shape[1], n_feat, tile, threads, int(accumulate))
+    if body == "scalar":
+        return lib.scv_spmm_runs_scalar(*tiles, ptr(runs.ptr), ptr(z), ptr(out),
+                                        runs.n_runs, *shape, ctypes.c_void_p(stream))
+    scratch = counters = None
+    if runs.n_split_units:
+        # freed when this returns, while the launch may still run: the caching
+        # allocator hands the memory on only to work queued after it on this stream
+        scratch = torch.empty((runs.n_split_units, tile, n_feat), dtype=torch.float32,
+                              device=z.device)
+        counters = runs.counters(z.device, -(-n_feat // threads))
+    return lib.scv_spmm_runs(*tiles, ptr(runs.units), ptr(runs.unit_ptr), ptr(runs.order),
+                             ptr(z), ptr(out), ptr(scratch), ptr(counters), runs.n_units,
+                             *shape, z.shape[0], dense_threshold, ctypes.c_void_p(stream))

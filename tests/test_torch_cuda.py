@@ -1,7 +1,9 @@
 """The SCV SpMM CUDA kernels against their plain versions, on the card:
-the vector body (sparse branch, accumulate mode, dense-tile branch), the
-scalar body, the shared-memory opt-in at T = 128, a refused launch, and
-gradients through a CUDA forward.
+the vector body (sparse branch, accumulate mode, dense-tile branch; runs
+split into many work units, summed in a fixed order by the run's last
+block), the scalar body, the shared-memory opt-in at T = 128, a refused
+launch, repeat launches giving the same bits, and gradients through a
+CUDA forward.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -19,6 +21,8 @@ import torch
 from repro_torch.kernels.scv_spmm import ref
 from repro_torch.kernels.scv_spmm import scv_spmm as kmod
 from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+from repro_torch.core import scv
+from repro_torch.core.formats import COOMatrix
 from repro_torch.core.scv import coo_to_scv_tiles, dense_tile_threshold, plan_from_tiles
 from repro_torch.models.gnn import GNNConfig, build_graph, gnn_loss, init_gnn
 from repro_torch.serve.graph_engine import assemble_batched_graph, plan_launches
@@ -176,3 +180,127 @@ def test_cuda_forward_carries_gradients(dev):
     plain = torch.autograd.grad(-logp.gather(1, labels[:, None]).mean(), flat)
     for a, b in zip(got, plain):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def _ints(plan, seed):
+    """``plan`` with integer values in -4..4 in every slot (exact sums)."""
+    gen = torch.Generator().manual_seed(seed)
+    return dataclasses.replace(plan, segments=tuple(
+        dataclasses.replace(s, vals=torch.randint(-4, 5, tuple(s.vals.shape),
+                                                  generator=gen).float().to(s.vals.device))
+        for s in plan.segments))
+
+
+def _hub(dev, tile):
+    """A graph whose first block-row reaches every column block: its run
+    holds n / T tiles, the rest of the graph is sparse."""
+    rng = np.random.default_rng(tile)
+    n = 4096
+    r = np.concatenate([rng.integers(0, tile, 20_000), rng.integers(0, n, 8_000)])
+    c = np.concatenate([rng.integers(0, n, 20_000), rng.integers(0, n, 8_000)])
+    a = COOMatrix(r.astype(np.int32), c.astype(np.int32), np.ones(r.size, np.float32), (n, n))
+    return build_graph(a, tile=tile, bucket_caps="auto", with_edges=False, device=dev).plan
+
+
+def _split_units(plan) -> int:
+    return sum(s.runs.n_split_units for s in plan.segments)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("n_feat", [128, 40])
+def test_split_hub_run_bit_exact_on_integers(dev, monkeypatch, tile, n_feat):
+    monkeypatch.setattr(scv, "UNIT_WORK", 96)
+    plan = _ints(_hub(dev, tile), tile)
+    hub_units = max(int(np.diff(s.runs.unit_ptr.cpu().numpy()).max()) for s in plan.segments
+                    if s.n_tiles)
+    assert hub_units >= 8, "want a run split into many units"
+    z = torch.randint(-4, 5, (plan.shape[1], n_feat),
+                      generator=torch.Generator().manual_seed(n_feat)).float().to(dev)
+    kmod.reset_counts()
+    for init in ("coverage", "zeros"):
+        got = scv_spmm_plan(plan, z, init=init)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="vector"))
+    assert kmod.launches == 2 * plan_launches(plan)
+
+
+def test_accumulate_over_split_runs_keeps_unvisited_rows(dev, monkeypatch):
+    monkeypatch.setattr(scv, "UNIT_WORK", 64)
+    plan = _ints(_hub(dev, 64), 3)
+    # a later segment: no coverage dummies, so it leaves block-rows unvisited
+    s = max(plan.segments[1:], key=lambda s: s.runs.n_split_units)
+    assert s.runs.n_split_units > 0
+    z = torch.randint(-4, 5, (plan.shape[1], 40),
+                      generator=torch.Generator().manual_seed(4)).float().to(dev)
+    out = torch.full((plan.padded_shape[0], 40), 3.0, device=dev)
+    kmod.scv_spmm_runs(s.tile_row, s.tile_col, s.nnz_in_tile, s.rows, s.cols, s.vals,
+                       z, out, s.runs, tile=s.tile, accumulate=True)
+    part = ref.scv_spmm_vector_reference(
+        s.tile_row, s.tile_col, s.rows, s.cols, s.vals, z, tile=s.tile,
+        n_rows=out.shape[0], nnz_in_tile=s.nnz_in_tile,
+        dense_threshold=dense_tile_threshold(s.tile))
+    assert torch.equal(out, part + 3.0)
+    visited = np.zeros(plan.n_row_blocks, bool)
+    visited[s.runs.rows] = True
+    assert not visited.all()
+    strips = out.view(plan.n_row_blocks, s.tile, 40)
+    assert bool((strips[torch.from_numpy(~visited).to(dev)] == 3.0).all())
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_dense_tiles_inside_split_runs(dev, tile):
+    plan = _ints(_dense_block(dev, tile), tile)
+    thr = dense_tile_threshold(tile)
+    split_dense = 0
+    for s in plan.segments:
+        units, up = s.runs.units.cpu().numpy(), s.runs.unit_ptr.cpu().numpy()
+        nnz = s.nnz_in_tile.cpu().numpy()
+        for b, e, run, _ in units:
+            if up[run + 1] - up[run] > 1:
+                split_dense += int((nnz[b:e] > thr).sum())
+    assert split_dense > 0, "want dense tiles in split runs at the module's UNIT_WORK"
+    z = torch.randint(-4, 5, (plan.shape[1], 128),
+                      generator=torch.Generator().manual_seed(5)).float().to(dev)
+    kmod.reset_counts()
+    got = scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert kmod.dense_launches > 0
+    assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="vector"))
+
+
+@pytest.mark.parametrize("unit_work", [None, 16])
+def test_padded_composite_bit_exact_on_integers(dev, monkeypatch, unit_work):
+    if unit_work is not None:
+        monkeypatch.setattr(scv, "UNIT_WORK", unit_work)
+    plan = _ints(_composite(dev), 6)
+    padded = 0
+    for s in plan.segments:
+        # the tile-count padding: the last run's trailing zero-nnz tiles
+        last = int(s.runs.ptr[-2])
+        tail = s.nnz_in_tile[last:].cpu().numpy()
+        live_end = last + (np.flatnonzero(tail)[-1] + 1 if tail.any() else 0)
+        padded += s.n_tiles - live_end
+        assert int(s.runs.units[:, 1].max()) <= live_end  # the padding lies in no unit
+    assert padded > 0
+    z = torch.randint(-4, 5, (plan.shape[1], 128),
+                      generator=torch.Generator().manual_seed(7)).float().to(dev)
+    assert torch.equal(scv_spmm_plan(plan, z), ref.scv_spmm_reference_plan(plan, z))
+
+
+def test_back_to_back_launches_give_identical_bits(dev, monkeypatch):
+    """Real-valued inputs, where the order of summation shows in the bits:
+    two chains over split runs agree bit for bit, and every split run's
+    counter is back at 0 after each (the last block resets it)."""
+    monkeypatch.setattr(scv, "UNIT_WORK", 64)
+    plan = _hub(dev, 64)
+    assert _split_units(plan) > 0
+    z = torch.randn((plan.shape[1], 128), generator=torch.Generator().manual_seed(8)).to(dev)
+    first = scv_spmm_plan(plan, z)
+    second = scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for s in plan.segments:
+        for c in s.runs._counters.values():
+            assert not bool(c.any())
+    want = ref.scv_spmm_reference_plan(plan, z)
+    assert (first - want).abs().max().item() <= 1e-5 * want.abs().max().item()

@@ -210,18 +210,20 @@ def test_wrapper_refuses_tile_over_cap(rng):
 
 
 @pytest.mark.parametrize("n_feat,tile,body,dense,threads,opt_in", [
-    (128, 64, "vector", True, 128, False),  # strip 32 KB + D 16 KB = 48 KB
+    (128, 64, "vector", True, 128, True),  # strip + Z block 64 KB + 13 KB staged
     (40, 64, "vector", True, 64, False),
-    (128, 128, "vector", True, 128, True),  # D alone is 64 KB: opt in
-    (128, 128, "vector", False, 96, False),
+    (128, 128, "vector", True, 128, True),  # strip + Z block 128 KB: opt in
+    (128, 128, "vector", False, 128, True),
+    (128, 64, "vector", False, 128, False),  # strip 32 KB + 13 KB staged
     (128, 64, "scalar", False, 128, False),  # strip + 3 KB of staged entries
     (128, 128, "scalar", False, 64, False),
     (16, 32, "vector", True, 32, False),
 ])
 def test_threads_for_counts_dense_and_staging_memory(n_feat, tile, body, dense, threads, opt_in):
-    extra = kmod.extra_smem(tile, body, dense)
-    assert kmod.threads_for(n_feat, tile, extra) == threads
-    smem = tile * threads * 4 + extra
+    assert kmod.threads_for(n_feat, tile, body, dense) == threads
+    smem = kmod.smem_bytes(tile, threads, body, dense)
+    staged = 12 * kmod.SCALAR_STAGE if body == "scalar" else 16 * kmod.UNIT_ENTRIES
+    assert smem >= tile * threads * 4 * (2 if dense else 1) + staged
     assert (smem > kmod.SMEM_BYTES) == opt_in
     assert smem <= kmod.SMEM_OPT_IN_BYTES
 

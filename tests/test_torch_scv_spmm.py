@@ -231,16 +231,18 @@ def test_accumulate_mode_keeps_unvisited_rows(rng):
 
 
 @pytest.mark.parametrize("n_feat,tile,threads", [
-    (128, 64, 128), (40, 64, 64), (7, 64, 32), (300, 64, 128), (128, 128, 96),
+    (128, 64, 128), (40, 64, 64), (7, 64, 32), (300, 64, 128), (128, 128, 128),
+    (128, 512, 96),
 ])
 def test_threads_for(n_feat, tile, threads):
+    # the vector body keeps the full width and opts in where it must
     assert kmod.threads_for(n_feat, tile) == threads
-    assert tile * threads * 4 <= kmod.SMEM_BYTES
+    assert kmod.smem_bytes(tile, threads) <= kmod.SMEM_OPT_IN_BYTES
 
 
 def test_threads_for_refuses_oversized_tile():
     with pytest.raises(ValueError, match="shared memory"):
-        kmod.threads_for(128, 512)
+        kmod.threads_for(128, 2048)
 
 
 def test_run_index_device_copy():
