@@ -49,9 +49,30 @@ Phases, each of which fails the run on error:
    (within 1e-4 of each gradient's largest magnitude), and so are the
    arxiv-scale graph's; the loss must fall.
 9. The scalar body through the public op (``body="scalar"``).
+10. Streaming deltas on the arxiv-scale plan, on the card (T = 64, the
+    engine's ladder (8, 32, 128)): 16 deltas of 64 edges (value updates,
+    inserts + removes, net shrinks, a tile pushed across a ladder
+    boundary, a tile made dense, a tile birth and a death) patched by
+    ``stream.apply_delta``.  After each: the patched graph equals the
+    rebuild from ``apply_coo`` leaf for leaf and run index for run index,
+    ``validate_plan`` is green, the kernel chain on it is bit-exact with the
+    chain on the rebuilt plan on integer values and within 1e-5 of the
+    plain version on normalised values, and the dense-branch launch count
+    is the one the tiles call for.  The dense delta is also applied to the
+    same graph on the ladder (8, 32, 128, 512), where its tile takes the
+    dense branch.  Times: patch against rebuild, the copies inside the
+    patch, and the chain on the patched plan against the rebuilt one.
+11. Tracked-graph serving: the arxiv-scale graph as one tracked member of
+    ``GraphServeEngine(debug_validate=True)`` at gcn-paper widths, with 0,
+    1 and 4 value-update deltas of 64 edges between waves, 3 waves each,
+    through ``run()`` and under the async loop.  Every output within 1e-4
+    of a plain forward on the rebuilt post-delta graph, every update a
+    plan-cache revalidation, the kernel's launch count equal to the
+    engine's; queries/s and updates/s per rate, and a wave's time split
+    into update, composite assembly, copy to the card and forward.
 
-Each of phases 4, 5, 8 and 9 sets the kernels' launch counts to 0 just
-before it and reads them just after.  The line before the last is a JSON
+Each of phases 4, 5, 8, 9, 10 and 11 sets the kernels' launch counts to 0
+just before it drives its path and reads them just after.  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -85,6 +106,14 @@ UNIT_WORK_SWEEP = (512, 1024, 2048, 4096, 8192)  # arxiv chain, measured only
 DENSE_THRESHOLD_SWEEP = (64, 128, 192, 256, 384, 512, 768)  # T = 64, measured only
 TRAIN_STEPS = 20
 TRAIN_LR = 2.0
+DELTA_EDGES = 64  # edges a streaming delta touches
+DELTA_STREAM = ("value update", "value update", "inserts + removes", "value update",
+                "net shrink", "ladder crossing", "value update", "inserts + removes",
+                "birth + death", "value update", "dense tile", "net shrink",
+                "value update", "inserts + removes", "value update", "birth + death")
+DENSE_LADDER = (8, 32, 128, 512)  # the engine's ladder and a rung above T^2/16
+TRACKED_RATES = (0, 1, 4)  # value-update deltas between tracked waves
+TRACKED_WAVES = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -192,6 +221,348 @@ def csr_of(entries, shape, dev) -> torch.Tensor:
     idx = torch.from_numpy(np.stack([rows, cols]))
     coo = torch.sparse_coo_tensor(idx, torch.from_numpy(vals), shape)
     return coo.coalesce().to_sparse_csr().to(dev)
+
+
+def plain_gcn_forward(params, cfg, g, x):
+    """GCN forward with the plain aggregation (``ref.py``), on ``x``'s device."""
+    from repro_torch.kernels.scv_spmm import ref
+
+    h = x
+    for i in range(cfg.n_layers):
+        h = ref.scv_spmm_reference_plan(g.plan, h @ params[f"layer{i}"]["w"])
+        h = h[: g.n_nodes]
+        if i + 1 < cfg.n_layers:
+            h = torch.relu(h)
+    return h
+
+
+class DeltaMaker:
+    """Seeded edge deltas on the current adjacency of a graph (host)."""
+
+    def __init__(self, seed: int, tile: int):
+        self.rng = np.random.default_rng(seed)
+        self.tile = tile
+
+    def _keys(self, adj):
+        return np.sort(adj.rows.astype(np.int64) * adj.shape[1] + adj.cols)
+
+    def _absent(self, adj, k, rows=None, cols=None):
+        """``k`` distinct coordinates not in ``adj``, drawn from ``rows`` x
+        ``cols`` (default: the whole matrix)."""
+        n = adj.shape[0]
+        keys = self._keys(adj)
+        out = np.zeros(0, np.int64)
+        while out.size < k:
+            r = self.rng.integers(*(rows or (0, n)), 4 * k)
+            c = self.rng.integers(*(cols or (0, n)), 4 * k)
+            cand = np.unique(r * adj.shape[1] + c)
+            idx = np.minimum(np.searchsorted(keys, cand), keys.size - 1)
+            cand = cand[keys[idx] != cand]
+            out = np.union1d(out, cand)
+        out = self.rng.permutation(out)[:k]
+        return out // adj.shape[1], out % adj.shape[1]
+
+    def _vals(self, k):
+        return self.rng.uniform(0.01, 0.5, k).astype(np.float32)
+
+    def _delta(self, ins_r, ins_c, ins_v, rem_idx, adj):
+        from repro_torch.stream import DeltaBatch
+
+        return DeltaBatch(np.asarray(ins_r, np.int32), np.asarray(ins_c, np.int32),
+                          np.asarray(ins_v, np.float32), adj.rows[rem_idx].copy(),
+                          adj.cols[rem_idx].copy())
+
+    def _tile_counts(self, adj):
+        T = self.tile
+        nbc = -(-adj.shape[1] // T)
+        key = (adj.rows // T).astype(np.int64) * nbc + adj.cols // T
+        uk, counts = np.unique(key, return_counts=True)
+        return key, uk, counts, nbc
+
+    def make(self, kind: str, adj):
+        k = DELTA_EDGES
+        T = self.tile
+        if kind == "value update":
+            idx = self.rng.choice(adj.nnz, k, replace=False)
+            return self._delta(adj.rows[idx], adj.cols[idx], self._vals(k), idx, adj)
+        if kind in ("inserts + removes", "net shrink"):
+            n_ins = k if kind == "inserts + removes" else k // 4
+            r, c = self._absent(adj, n_ins)
+            idx = self.rng.choice(adj.nnz, k, replace=False)
+            return self._delta(r, c, self._vals(n_ins), idx, adj)
+        key, uk, counts, nbc = self._tile_counts(adj)
+        if kind in ("ladder crossing", "dense tile"):
+            if kind == "ladder crossing":  # a tile of the cap-8 bucket past 32 entries
+                t = uk[self.rng.choice(np.flatnonzero((counts >= 4) & (counts <= 8)))]
+                n_ins = k
+            else:  # the heaviest tile past T^2/16 entries
+                t = uk[np.argmax(counts)]
+                n_ins = max(k, T * T // 16 + 8 - int(counts.max()))
+            br, bc = int(t // nbc) * T, int(t % nbc) * T
+            r, c = self._absent(adj, n_ins, (br, min(br + T, adj.shape[0])),
+                                (bc, min(bc + T, adj.shape[1])))
+            return self._delta(r, c, self._vals(n_ins), np.zeros(0, np.int64), adj)
+        if kind == "birth + death":
+            dead = uk[self.rng.choice(np.flatnonzero(counts <= 3))]
+            idx = np.flatnonzero(key == dead)
+            nbr = -(-adj.shape[0] // T)
+            while True:  # a tile that holds no entry
+                t = int(self.rng.integers(nbr * nbc))
+                j = np.searchsorted(uk, t)
+                if j == uk.size or uk[j] != t:
+                    break
+            br, bc = t // nbc * T, t % nbc * T
+            n_ins = k - idx.size
+            r, c = self._absent(adj, n_ins, (br, min(br + T, adj.shape[0])),
+                                (bc, min(bc + T, adj.shape[1])))
+            return self._delta(r, c, self._vals(n_ins), idx, adj)
+        raise ValueError(f"unknown delta kind {kind!r}")
+
+
+def graphs_equal(a, b) -> list[str]:
+    """Where two graphs differ: plan leaves (values and dtypes), run index
+    fields, edge arrays.  Empty when equal."""
+    from repro_torch.core.validate import run_index_diff
+
+    bad = []
+    sa, sb = getattr(a.plan, "segments", (a.plan,)), getattr(b.plan, "segments", (b.plan,))
+    if len(sa) != len(sb):
+        return ["segment count"]
+    for j, (x, y) in enumerate(zip(sa, sb)):
+        for f in ("tile_row", "tile_col", "rows", "cols", "vals", "nnz_in_tile", "perm"):
+            u, v = getattr(x, f), getattr(y, f)
+            if u.dtype != v.dtype or u.shape != v.shape or not torch.equal(u, v):
+                bad.append(f"segment {j} {f}")
+        bad += [f"segment {j} runs.{f}" for f in run_index_diff(x.runs, y.runs)]
+    for f in ("rows", "cols", "vals"):
+        u, v = getattr(a, f), getattr(b, f)
+        if (u is None) != (v is None) or (u is not None and not torch.equal(u, v)):
+            bad.append(f"edges {f}")
+    return bad
+
+
+def perm_int_plan(plan):
+    """``plan`` with integer values -4..4 drawn from each slot's source id
+    (0 in padding): a patched plan and its rebuild get the same values."""
+    def ints(s):
+        v = torch.where(s.perm >= 0, (s.perm % 9 - 4).float(), torch.zeros((), device=s.device))
+        return dataclasses.replace(s, vals=v)
+    return dataclasses.replace(plan, segments=tuple(ints(s) for s in plan.segments))
+
+
+def expected_dense(plan) -> int:
+    """Launches of one chain in which a tile takes the dense branch, from
+    the tiles' own nnz (not from any run index)."""
+    from repro_torch.core.scv import dense_tile_threshold
+
+    return sum(1 for s in plan.segments
+               if s.n_tiles and int(s.nnz_in_tile.max()) > dense_tile_threshold(s.tile))
+
+
+def stream_drive(adj, layout, dev, n_feat: int, gen) -> dict:
+    """Phase 10: the delta stream on a graph held on ``dev``; returns the
+    numbers of the run.  Raises on any disagreement."""
+    from repro_torch.core.validate import validate_plan
+    from repro_torch.kernels.scv_spmm import ref
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+    from repro_torch.models.gnn import build_graph
+    from repro_torch.serve.graph_engine import plan_launches
+    from repro_torch.stream import apply_coo, apply_delta
+    from repro_torch.stream import delta as dmod
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def build(a, caps=None):
+        kw = dict(config=layout) if caps is None else dict(tile=layout.tile, bucket_caps=caps)
+        g = build_graph(a, device=dev, **kw)
+        sync()
+        return g
+
+    def hold(g, rebuilt, final, label, z_int, z):
+        """The checks after one delta; returns (max err, max |plain|, kernel
+        launches, dense launches) of the chain on the patched plan."""
+        bad = graphs_equal(g, rebuilt)
+        check(not bad, f"{label}: patched != rebuilt at {bad[:4]}")
+        rep = validate_plan(g, coo=final)
+        check(rep.ok, f"{label}: validate_plan\n{rep.summary()}")
+        p_int, r_int = perm_int_plan(g.plan), perm_int_plan(rebuilt.plan)
+        kmod.reset_counts()
+        k_int = scv_spmm_plan(p_int, z_int)
+        sync()
+        n_launch, n_dense = kmod.launches, kmod.dense_launches
+        check(torch.equal(k_int, scv_spmm_plan(r_int, z_int)),
+              f"{label}: chain on patched != chain on rebuilt (integer values)")
+        check(torch.equal(k_int, ref.scv_spmm_reference_plan(p_int, z_int)),
+              f"{label}: chain != plain version (integer values)")
+        check(n_launch == plan_launches(g.plan) and n_dense == expected_dense(rebuilt.plan),
+              f"{label}: {n_launch} launches, {n_dense} dense; want "
+              f"{plan_launches(g.plan)}, {expected_dense(rebuilt.plan)}")
+        err, scale = rel_err(scv_spmm_plan(g.plan, z), ref.scv_spmm_reference_plan(g.plan, z))
+        check(err <= 1e-5 * scale, f"{label}: max err {err} > 1e-5 * {scale}")
+        return err, scale, n_launch, n_dense
+
+    maker = DeltaMaker(seed=10, tile=layout.tile)
+    n = adj.shape[1]
+    z_int = torch.randint(-4, 5, (n, n_feat), generator=gen).float().to(dev)
+    z = torch.randn((n, n_feat), generator=gen).to(dev)
+    t0 = time.perf_counter()
+    g = build(adj)
+    print(f"[stream] arxiv-scale graph on {dev.type}: built in {time.perf_counter() - t0:.3f} s, "
+          f"ladder {g.plan.caps}, tiles {[s.n_tiles for s in g.plan.segments]}")
+    cur = adj
+    rows, launches, dense_launches, worst = [], 0, 0, 0.0
+    for i, kind in enumerate(DELTA_STREAM):
+        d = maker.make(kind, cur)
+        t0 = time.perf_counter()
+        final = apply_coo(cur, d)
+        t_coo = time.perf_counter() - t0
+        if kind == "dense tile":
+            g512 = build(cur, DENSE_LADDER)
+            z512 = torch.randint(-4, 5, (n, n_feat), generator=gen).float().to(dev)
+            kmod.reset_counts()
+            scv_spmm_plan(perm_int_plan(g512.plan), z512)
+            sync()
+            dense_before = kmod.dense_launches
+        dmod.copies.reset()
+        sync()
+        t0 = time.perf_counter()
+        patched = apply_delta(g, d)
+        sync()
+        t_patch = time.perf_counter() - t0
+        cp = dataclasses.replace(dmod.copies)
+        t0 = time.perf_counter()
+        rebuilt = build(final)
+        t_rebuild = time.perf_counter() - t0
+        label = f"delta {i} ({kind})"
+        err, scale, n_launch, n_dense = hold(patched, rebuilt, final, label, z_int, z)
+        launches += n_launch
+        dense_launches += n_dense
+        worst = max(worst, err / scale)
+        ms_p = device_ms(lambda: scv_spmm_plan(patched.plan, z), 5)
+        ms_r = device_ms(lambda: scv_spmm_plan(rebuilt.plan, z), 5)
+        moved = [j for j, (a, b) in enumerate(zip(g.plan.segments, patched.plan.segments))
+                 if a is not b]
+        rows.append(dict(kind=kind, patch_s=t_patch, rebuild_s=t_rebuild, coo_s=t_coo,
+                         d2h_mb=cp.d2h_bytes / 1e6, d2h_s=cp.d2h_s, h2d_mb=cp.h2d_bytes / 1e6,
+                         h2d_s=cp.h2d_s, chain_ms=ms_p, rebuilt_chain_ms=ms_r))
+        print(f"[stream] {label}: {d.n_insert} inserts, {d.n_remove} removes; "
+              f"apply_delta {1e3 * t_patch:.1f} ms (copies: {cp.d2h_bytes / 1e6:.1f} MB to the "
+              f"host in {1e3 * cp.d2h_s:.1f} ms, {cp.h2d_bytes / 1e6:.1f} MB to the card in "
+              f"{1e3 * cp.h2d_s:.1f} ms), rebuild {1e3 * t_rebuild:.1f} ms "
+              f"(x{t_rebuild / t_patch:.1f}), apply_coo {1e3 * t_coo:.1f} ms; segments patched "
+              f"{moved}, tiles {[s.n_tiles for s in patched.plan.segments]}; chain F={n_feat} "
+              f"patched {ms_p:.4f} ms, rebuilt {ms_r:.4f} ms; {n_launch} launches, "
+              f"{n_dense} dense; max err {err:.2e} (max |plain| {scale:.2e})")
+        if kind == "dense tile":
+            p512 = apply_delta(g512, d)
+            r512 = build(final, DENSE_LADDER)
+            _, _, n512, d512 = hold(p512, r512, final, f"{label} on ladder {DENSE_LADDER}",
+                                    z512, z)
+            check(dense_before == 0 and d512 == 1,
+                  f"{label}: dense launches {dense_before} before, {d512} after")
+            print(f"[stream] {label} on ladder {DENSE_LADDER}: heaviest tile "
+                  f"{max(int(s.nnz_in_tile.max()) for s in p512.plan.segments if s.n_tiles)} "
+                  f"entries; chain launches {n512}, dense {dense_before} before the delta, "
+                  f"{d512} after; patched == rebuilt, validate green")
+            del g512, p512, r512
+        g, cur = patched, final
+    patch = np.array([r["patch_s"] for r in rows])
+    rebuild = np.array([r["rebuild_s"] for r in rows])
+    ratio = np.array([r["chain_ms"] / r["rebuilt_chain_ms"] for r in rows])
+    print(f"[stream] {len(rows)} deltas: apply_delta median {1e3 * np.median(patch):.1f} ms "
+          f"(max {1e3 * patch.max():.1f}), rebuild median {1e3 * np.median(rebuild):.1f} ms, "
+          f"rebuild / patch median x{np.median(rebuild / patch):.1f}; chain patched / rebuilt "
+          f"{ratio.min():.3f}..{ratio.max():.3f}; {launches} kernel launches, "
+          f"{dense_launches} dense; worst rel err {worst:.2e}")
+    return dict(rows=rows, launches=launches, dense_launches=dense_launches, worst=worst)
+
+
+def tracked_serving(adj, cfg, layout, dev) -> dict:
+    """Phase 11: ``adj`` served as one tracked member of a debug-validating
+    engine on ``dev``, with value-update deltas between waves; returns the
+    numbers of the run.  Raises on any disagreement."""
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.launch.graph_serve import build_default_engine
+    from repro_torch.models.gnn import build_graph
+    from repro_torch.serve.graph_engine import GraphRequest
+
+    T = layout.tile
+    bucket = -(-adj.shape[0] // T) * T
+    engine = build_default_engine(model=cfg, device=dev, seed=0, max_batch_graphs=1,
+                                  max_batch_nodes=bucket, node_buckets=(bucket,),
+                                  cache_bytes=8 << 30, debug_validate=True)
+    params = engine.models["gcn"][0]
+    x = np.random.default_rng(11).standard_normal((adj.shape[0], cfg.d_in)).astype(np.float32)
+    maker = DeltaMaker(seed=12, tile=T)
+    served = []  # (request, the adjacency its wave served)
+    kmod.reset_counts()
+    engine.submit(GraphRequest(rid=0, adj=adj, x=x, model="gcn", graph_id="g"))
+    engine.run()
+    served.append((engine.completed[-1], adj))
+    rid, n_updates, results = 1, 0, []
+    for mode in ("run", "async"):
+        if mode == "async":
+            engine.start()
+        for rate in TRACKED_RATES:
+            before = {k: getattr(engine, k) for k in ("update_seconds", "assemble_seconds",
+                                                      "copy_seconds")}
+            t0 = time.perf_counter()
+            for _ in range(TRACKED_WAVES):
+                for _ in range(rate):
+                    engine.update("g", maker.make("value update", engine.tracked_adj("g")))
+                    n_updates += 1
+                req = engine.submit(GraphRequest(rid=rid, x=x, model="gcn", graph_id="g"))
+                if mode == "run":
+                    engine.run()
+                else:
+                    req.result(timeout=600)
+                served.append((req, engine.tracked_adj("g")))
+                rid += 1
+            wall = time.perf_counter() - t0
+            split = {k: (getattr(engine, k) - v) / TRACKED_WAVES for k, v in before.items()}
+            forward = wall / TRACKED_WAVES - sum(split.values())
+            results.append(dict(mode=mode, rate=rate, queries_per_s=TRACKED_WAVES / wall,
+                                updates_per_s=rate * TRACKED_WAVES / wall,
+                                wave_s=wall / TRACKED_WAVES, forward_s=forward, **split))
+            print(f"[tracked] {mode} {rate} updates a wave: {TRACKED_WAVES / wall:.2f} "
+                  f"queries/s, {rate * TRACKED_WAVES / wall:.2f} updates/s; a wave "
+                  f"{1e3 * wall / TRACKED_WAVES:.1f} ms = update "
+                  f"{1e3 * split['update_seconds']:.1f} + assembly (validate_plan included) "
+                  f"{1e3 * split['assemble_seconds']:.1f} + copy to the card "
+                  f"{1e3 * split['copy_seconds']:.1f} + forward and the rest {1e3 * forward:.1f} ms")
+        if mode == "async":
+            engine.stop(timeout=600)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kmod.launches
+    m = engine.metrics()
+    check(launches == m["launches"] > 0,
+          f"tracked serving: kernel launches {launches} != engine launches {m['launches']}")
+    check(m["graph_updates"] == m["plan_cache_revalidated"] == n_updates,
+          f"tracked serving: {m['graph_updates']} updates, {m['plan_cache_revalidated']} "
+          f"revalidated, {n_updates} applied")
+    worst, plain = 0.0, {}
+    for req, a in served:
+        check(req.done and req.out is not None, f"tracked request {req.rid} not served")
+        if id(a) not in plain:
+            with torch.inference_mode():
+                plain[id(a)] = plain_gcn_forward(
+                    params, cfg, build_graph(a, config=layout, with_edges=False, device=dev),
+                    torch.from_numpy(x).to(dev)).cpu().numpy()
+        want = plain[id(a)]
+        check(req.out.shape == want.shape and np.isfinite(req.out).all(),
+              f"tracked request {req.rid} output shape/finiteness")
+        err = float(np.abs(req.out - want).max() / max(1.0, np.abs(want).max()))
+        check(err <= 1e-4, f"tracked request {req.rid}: off the plain forward by {err}")
+        worst = max(worst, err)
+    print(f"[tracked] {len(served)} waves, {n_updates} updates = {m['plan_cache_revalidated']} "
+          f"revalidated ({m['plan_cache_anchored']} anchored), kernel launches {launches} = "
+          f"engine launches {m['launches']}, worst rel err vs plain forward on the rebuilt "
+          f"graph {worst:.2e}")
+    return dict(results=results, launches=launches, updates=n_updates, worst=worst)
 
 
 def main() -> int:
@@ -329,13 +700,22 @@ def main() -> int:
                 # one block walks one work unit: the heaviest unit sets the floor
                 ptr = s.runs.ptr.cpu().numpy()
                 run_nnz = np.add.reduceat(s.nnz_in_tile.cpu().numpy(), ptr[:-1])
+                extra = ""
+                if seeding:  # the first-segment launch: its own plain and library times
+                    seg_plain = device_ms(lambda s=s: ref.scv_spmm_reference(
+                        s.tile_row, s.tile_col, s.rows, s.cols, s.vals, z, tile=s.tile,
+                        n_rows=out.shape[0], nnz_in_tile=s.nnz_in_tile), 3 if big else 20)
+                    seg_csr = csr_of(segment_entries(s), (out.shape[0], g.plan.shape[1]), dev)
+                    seg_lib = device_ms(lambda: torch.sparse.mm(seg_csr, z), 10 if big else 50)
+                    extra = f", plain {seg_plain:.4f} ms, torch.sparse.mm (CSR) {seg_lib:.4f} ms"
+                    del seg_csr
                 print(f"[time]   segment {j} cap {s.cap}: {s.n_tiles} tiles, "
                       f"{s.runs.n_runs} runs, nnz {int(run_nnz.sum())}, "
                       f"longest run {int(np.diff(ptr).max())} tiles / "
                       f"{int(run_nnz.max())} nnz, {s.runs.n_units} units "
                       f"({s.runs.n_split_units} in split runs, heaviest "
                       f"{s.runs.max_unit_work} work), accumulate={acc}: "
-                      f"{seg_ms:.4f} ms, bound {seg_bound:.4f} ms")
+                      f"{seg_ms:.4f} ms, bound {seg_bound:.4f} ms{extra}")
                 seeding = False
         del csr
     torch.cuda.synchronize()
@@ -369,13 +749,7 @@ def main() -> int:
     # -- 4. serving --------------------------------------------------------------
     def plain_forward(params, g, x):
         """GCN forward with the plain aggregation, on the card."""
-        h = x
-        for i in range(cfg.n_layers):
-            h = ref.scv_spmm_reference_plan(g.plan, h @ params[f"layer{i}"]["w"])
-            h = h[: g.n_nodes]
-            if i + 1 < cfg.n_layers:
-                h = torch.relu(h)
-        return h
+        return plain_gcn_forward(params, cfg, g, x)
 
     graphs = {id(a): build_graph(a, config=layout, device=dev) for a in pool}
 
@@ -686,6 +1060,16 @@ def main() -> int:
     check(err <= 1e-5 * scale, f"scalar drive off the plain version: {err}")
     print(f"[scalar] {sc_name} F={cfg.d_hidden} through scv_spmm_plan(body='scalar'): "
           f"{scalar_launches} launch, max abs err {err:.3e}")
+
+    # -- 10. streaming deltas on the arxiv-scale plan --------------------------
+    stream = stream_drive(arxiv_adj, layout, dev, cfg.d_hidden, gen)
+    torch.cuda.synchronize()
+
+    # -- 11. tracked-graph serving ---------------------------------------------
+    tracked = tracked_serving(arxiv_adj, cfg, layout, dev)
+    torch.cuda.synchronize()
+    print(f"[paths] kernel launches: stream drive {stream['launches']} "
+          f"({stream['dense_launches']} dense), tracked serving {tracked['launches']}")
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

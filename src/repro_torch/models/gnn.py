@@ -51,6 +51,11 @@ class Graph:
     def device(self) -> torch.device:
         return self.plan.device
 
+    def to(self, device) -> "Graph":
+        edges = {k: getattr(self, k).to(device) for k in ("rows", "cols", "vals")
+                 if getattr(self, k) is not None}
+        return dataclasses.replace(self, plan=self.plan.to(device), **edges)
+
 
 def build_graph(
     adj: COOMatrix,
@@ -278,6 +283,9 @@ class BatchedGraph:
     @property
     def n_graphs(self) -> int:
         return len(self.node_counts)
+
+    def to(self, device) -> "BatchedGraph":
+        return dataclasses.replace(self, graph=self.graph.to(device))
 
 
 def batch_features(bg: BatchedGraph, xs) -> torch.Tensor:

@@ -11,17 +11,25 @@ capacity segment.
 * **Composite assembly from cached plans** — member plans are kept on the
   host, so a composite is index arithmetic over their arrays (vectorized
   numpy, no re-tiling), copied to the engine's device once and cached
-  there.  The composite's run index is computed here, on the host, from
-  the composite schedule.
+  there (``metrics()`` times the two: ``assemble_seconds``,
+  ``copy_seconds``).  The composite's run index is computed on the host,
+  from the composite schedule.
 * **Padding buckets** — composite node counts round up to a fixed ladder,
   and tile counts to powers of two, so composites come in few shapes.
 * **Scheduling** — ``serve/scheduler.py`` owns intake, wave formation,
   deadline admission and the async loop (``start()`` / ``stop()``).
+* **Tracked graphs** — a request with a ``graph_id`` registers its
+  adjacency; ``update(graph_id, delta)`` advances it by an edge delta and
+  patches its cached member plan on the host (``stream.apply_delta``,
+  re-keyed by ``plan_cache.delta_key``), so the next wave's composite is
+  assembled from the patched member and copied to the device.
+* **Debug validation** — ``GraphEngineConfig.debug_validate`` runs
+  ``core.validate.validate_plan`` on every composite the engine builds.
 
 The engine runs on ``device`` (default ``"cuda"``; it raises when no GPU
-is present, and the tests pass ``device="cpu"``).  Delta updates,
-multi-device routing, autotuned layouts and debug validation come with
-later slices of the port; :class:`GraphEngineConfig` refuses them.
+is present, and the tests pass ``device="cpu"``).  Multi-device routing
+and autotuned layouts come with later slices of the port;
+:class:`GraphEngineConfig` refuses them.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ from repro_torch.core.scv import (
     SCVBucketedPlan,
     SCVPlan,
 )
-from repro_torch.core.validate import check_coo
+from repro_torch.core.validate import check_coo, validate_plan
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import (
     BatchedGraph,
@@ -58,7 +66,9 @@ from repro_torch.serve.scheduler import (
     AdmissionRejected,
     EngineOverloaded,
     Scheduler,
+    _Control,
 )
+from repro_torch.stream import DeltaBatch, apply_coo, apply_delta, check_delta
 from repro_torch.tune.config import TunedConfig
 
 __all__ = [
@@ -74,12 +84,21 @@ __all__ = [
 
 @dataclasses.dataclass
 class GraphRequest:
-    """One inference request: run ``model`` over (adj, x)."""
+    """One inference request: run ``model`` over (adj, x).
+
+    ``adj`` may be omitted when ``graph_id`` names a graph the engine
+    already tracks (registered by an earlier request that carried both):
+    the wave then serves the tracked graph's *current* adjacency, after
+    every ``update()`` applied so far.
+    """
 
     rid: int
     adj: Optional[COOMatrix] = None  # normalized adjacency (e.g. gcn_normalize)
     x: Optional[np.ndarray] = None  # f32[n_nodes, d_in]
     model: str = "default"
+    # stable identity of a delta-tracked graph: a request carrying both
+    # graph_id and adj (re)registers the adjacency under it
+    graph_id: Optional[str] = None
     # latency budget in seconds, relative to submit time (None = serve
     # whenever); see the scheduler's admission control and shedding
     deadline_s: Optional[float] = None
@@ -115,7 +134,6 @@ _LATER_SLICES = {
     "autotune": "the simulator/tuner slice (tune/autotuner.py)",
     "shard_nodes_threshold": "the sharding slice (core/exec.py)",
     "shard_nnz_threshold": "the sharding slice (core/exec.py)",
-    "debug_validate": "the checks slice (core/validate.py::validate_plan)",
 }
 
 
@@ -141,11 +159,17 @@ class GraphEngineConfig:
     intake_capacity: int = 4096
     latency_window: int = 4096
     service_ema_alpha: float = 0.2
+    # every N updates a tracked graph's entry is re-homed from its
+    # delta-chained key to the content key of its current adjacency
+    # (PlanCache.anchor); 0 disables
+    anchor_every: int = 16
+    # run validate_plan on every composite the engine builds (a host pass
+    # over the composite's leaves: for bisecting plan corruption)
+    debug_validate: bool = False
     # --- options of the reference that later slices of the port bring ---
     autotune: bool = False
     shard_nodes_threshold: Optional[int] = None
     shard_nnz_threshold: Optional[int] = None
-    debug_validate: bool = False
 
     def __post_init__(self):
         for field, slice_name in _LATER_SLICES.items():
@@ -165,6 +189,8 @@ class GraphEngineConfig:
                 )
         if self.completed_history < 0:
             raise ValueError("completed_history must be >= 0")
+        if self.anchor_every < 0:
+            raise ValueError("anchor_every must be >= 0")
         if self.node_buckets and self.max_batch_nodes > max(self.node_buckets):
             raise ValueError(
                 f"max_batch_nodes={self.max_batch_nodes} exceeds the largest "
@@ -385,6 +411,17 @@ def plan_launches(plan) -> int:
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class _TrackedGraph:
+    """Current state of a delta-tracked graph: the adjacency after every
+    applied delta, and the plan-cache key its member plan lives under (the
+    delta-chained lineage of its registration-time content key)."""
+
+    adj: COOMatrix
+    key: str
+    updates_since_anchor: int = 0  # see GraphEngineConfig.anchor_every
+
+
 class GraphServeEngine:
     """Drives GNN models over batches of graph requests on ``device``.
 
@@ -423,6 +460,14 @@ class GraphServeEngine:
         self.n_batches = 0  # composite waves served
         self.n_launches = 0  # SCV kernel launches (see plan_launches)
         self.serve_seconds = 0.0
+        # delta-tracked graphs (see update()): graph_id -> current state
+        self._graphs: dict[str, _TrackedGraph] = {}
+        self.n_graph_updates = 0
+        # host seconds: applying updates, assembling composites on the host
+        # (member builds included), copying them to the device
+        self.update_seconds = 0.0
+        self.assemble_seconds = 0.0
+        self.copy_seconds = 0.0
         # the plan layout of every wave (per-graph tuned layouts come with
         # the autotune slice)
         self.layout = TunedConfig(
@@ -443,16 +488,25 @@ class GraphServeEngine:
         bounded intake stays full (at once with ``block=False``)."""
         if req.model not in self.models:
             raise KeyError(f"unknown model {req.model!r}; have {list(self.models)}")
-        if req.adj is None:
-            raise ValueError("request needs adj")
-        # out-of-range indices would land in a neighbour's block of the
-        # composite and corrupt co-batched outputs
-        check_coo(req.adj, square=True)
+        if req.adj is not None:
+            # out-of-range indices would land in a neighbour's block of the
+            # composite and corrupt co-batched outputs
+            check_coo(req.adj, square=True)
+            if req.graph_id is not None:
+                # (re)register: adj + graph_id resets the tracked state
+                self._graphs[req.graph_id] = _TrackedGraph(
+                    adj=req.adj, key=self._member_content_key(req.adj)
+                )
+        elif req.graph_id is None:
+            raise ValueError("request needs adj (or a tracked graph_id)")
+        else:
+            self._tracked(req.graph_id)
+        adj = self._resolve_adj(req)
         if req.x is None:
             raise ValueError("request needs node features x")
-        if req.x.shape[0] != req.adj.shape[0]:
+        if req.x.shape[0] != adj.shape[0]:
             raise ValueError(
-                f"features rows {req.x.shape[0]} != nodes {req.adj.shape[0]}"
+                f"features rows {req.x.shape[0]} != nodes {adj.shape[0]}"
             )
         _, mcfg = self.models[req.model]
         if req.x.ndim != 2 or req.x.shape[1] != mcfg.d_in:
@@ -475,20 +529,106 @@ class GraphServeEngine:
             )
         return req
 
+    # -- tracked graphs ----------------------------------------------------
+    def _tracked(self, graph_id: str) -> _TrackedGraph:
+        st = self._graphs.get(graph_id)
+        if st is None:
+            raise KeyError(
+                f"unknown graph_id {graph_id!r}; submit once with adj= to "
+                "register it"
+            )
+        return st
+
+    def _member_content_key(self, adj: COOMatrix) -> str:
+        layout = self.layout
+        return coo_content_key(adj, tile=layout.tile, cap=layout.cap_signature)
+
+    def _resolve_adj(self, req: GraphRequest) -> COOMatrix:
+        """The adjacency a wave serves for ``req``: the tracked graph's
+        current state when the request rides a graph_id, else its own.
+        Resolved at wave time, so an ``update()`` landing between submit
+        and run is served."""
+        if req.graph_id is not None:
+            return self._graphs[req.graph_id].adj
+        return req.adj
+
+    def update(self, graph_id: str, delta: DeltaBatch) -> str:
+        """Apply an edge delta to a tracked graph; returns its new plan key.
+
+        With the async loop running, the delta goes through the
+        scheduler's control channel and is applied between waves, so a
+        patch never runs while a wave reads the same member plan; this
+        call blocks until the loop acknowledges, so every request
+        submitted after it returns serves the post-delta graph.  Without
+        the loop it applies inline.
+
+        ``stream.check_delta`` admits the delta against the tracked
+        adjacency; the adjacency advances by ``apply_coo``; a live cached
+        member plan is patched on the host by ``stream.apply_delta`` and
+        re-keyed under ``delta_key(old, delta)`` (``revalidated``) instead
+        of becoming a rebuild.  Composite entries need no invalidation:
+        their keys combine the member keys.
+        """
+        if self.scheduler.running:
+            ctrl = _Control(apply=lambda: self._apply_update(graph_id, delta))
+            self.scheduler.queue.put_control(ctrl)
+            while not ctrl.done.wait(0.05):
+                if not self.scheduler.running:
+                    # the loop exited between enqueue and apply: drain the
+                    # control here (pop_controls is atomic: applied once)
+                    self.scheduler._apply_controls()
+                    break
+            if not ctrl.done.is_set():
+                self.scheduler._apply_controls()
+            if ctrl.error is not None:
+                raise ctrl.error
+            return ctrl.result
+        return self._apply_update(graph_id, delta)
+
+    def _apply_update(self, graph_id: str, delta: DeltaBatch) -> str:
+        t0 = time.perf_counter()
+        st = self._tracked(graph_id)
+        check_delta(delta, coo=st.adj)
+        if len(delta) == 0:
+            return st.key
+        st.adj = apply_coo(st.adj, delta, check=False)
+        st.key = self.plan_cache.revalidate(
+            st.key, delta, patch=lambda g: apply_delta(g, delta, check=False)
+        )
+        self.n_graph_updates += 1
+        st.updates_since_anchor += 1
+        if self.cfg.anchor_every and st.updates_since_anchor >= self.cfg.anchor_every:
+            st.key = self.plan_cache.anchor(st.key, self._member_content_key(st.adj))
+            st.updates_since_anchor = 0
+        self.update_seconds += time.perf_counter() - t0
+        return st.key
+
+    def tracked_adj(self, graph_id: str) -> COOMatrix:
+        """The current adjacency of a tracked graph (after every update)."""
+        return self._tracked(graph_id).adj
+
     # -- plans -------------------------------------------------------------
     def _batch_plan(self, batch: list[GraphRequest]) -> BatchedGraph:
-        """Composite plan for a batch, keyed by member content hashes so a
-        hot batch resolves before any member plan is touched.  Member
-        plans are built and cached on the host; the composite is assembled
-        there and copied to the engine's device once.  The salt carries
-        the model-kind component (edges for GAT only)."""
-        adjs = [r.adj for r in batch]
+        """Composite plan for a batch, keyed by member keys so a hot batch
+        resolves before any member plan is touched.  Member plans are
+        built and cached on the host; the composite is assembled there and
+        copied to the engine's device once.  The salt carries the
+        model-kind component (edges for GAT only).
+
+        A tracked member is keyed by its delta-chained key, resolved here
+        at wave time with its current adjacency, so a wave after an update
+        can never hit a composite from before it."""
+        adjs = [self._resolve_adj(r) for r in batch]
         tcfg = self.layout
         T = tcfg.tile
         _, mcfg = self.models[batch[0].model]
         with_edges = mcfg.kind == "gat"
         cap_sig = tcfg.cap_signature
-        member_keys = [coo_content_key(a, tile=T, cap=cap_sig) for a in adjs]
+        member_keys = [
+            self._graphs[r.graph_id].key if r.graph_id is not None
+            else coo_content_key(a, tile=T, cap=cap_sig)
+            for r, a in zip(batch, adjs)
+        ]
         aligned = sum(-(-a.shape[0] // T) * T for a in adjs)
         bucket = _bucket_nodes(aligned, self.cfg.node_buckets, T)
         ckey = combine_keys(
@@ -498,15 +638,21 @@ class GraphServeEngine:
         )
 
         def build() -> BatchedGraph:
+            t0 = time.perf_counter()
             plans = [
                 self.plan_cache.get_or_build(
                     k, lambda a=a: build_graph(a, config=tcfg, device="cpu")
                 )
                 for k, a in zip(member_keys, adjs)
             ]
-            return assemble_batched_graph(
-                plans, T, bucket, with_edges=with_edges, device=self.device
-            )
+            bg = assemble_batched_graph(plans, T, bucket, with_edges=with_edges)
+            if self.cfg.debug_validate:
+                validate_plan(bg).raise_if_failed()  # on the host copy
+            t1 = time.perf_counter()
+            bg = bg.to(self.device)
+            self.assemble_seconds += t1 - t0
+            self.copy_seconds += time.perf_counter() - t1
+            return bg
 
         return self.plan_cache.get_or_build(ckey, build)
 
@@ -629,6 +775,13 @@ class GraphServeEngine:
             "plan_cache_misses": s.misses,
             "plan_cache_evictions": s.evictions,
             "plan_cache_expired": s.expired,
+            "plan_cache_revalidated": s.revalidated,
+            "plan_cache_anchored": s.anchored,
+            "graph_updates": self.n_graph_updates,
+            "tracked_graphs": len(self._graphs),
+            "update_seconds": self.update_seconds,
+            "assemble_seconds": self.assemble_seconds,
+            "copy_seconds": self.copy_seconds,
             "plan_cache_bytes": s.bytes_in_use,
             "plan_cache_entries": s.entries,
             "plan_cache_hit_rate": s.hit_rate,

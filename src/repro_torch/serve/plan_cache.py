@@ -5,8 +5,9 @@ Port of ``src/repro/serve/plan_cache.py``.  The prepared plan (the
 the COO adjacency, so hot graphs skip preprocessing; composite (batched)
 plans derive their key from the member digests via ``combine_keys``.
 Entries are evicted least-recently-used past an entry-count or byte
-budget, and optionally expire after a TTL.  Delta re-keying
-(``revalidate`` / ``anchor``) comes with the port's delta slice.
+budget, and optionally expire after a TTL.  A delta-tracked graph's
+entry is patched and re-keyed in place (``revalidate``, keyed by
+``delta_key``) and now and then re-homed to its content key (``anchor``).
 """
 from __future__ import annotations
 
@@ -48,6 +49,20 @@ def combine_keys(keys: Iterable[str], *, salt: str = "") -> str:
     h.update(salt.encode())
     for k in keys:
         h.update(k.encode())
+    return h.hexdigest()
+
+
+def delta_key(key: str, delta: Any) -> str:
+    """Key of a cached plan after applying ``delta`` (a
+    ``stream.DeltaBatch``): hash of the old key + the delta's framed byte
+    signature.  Chaining digests is far cheaper than re-hashing a mutated
+    adjacency, at the cost that the chained key differs from
+    ``coo_content_key`` of the final adjacency computed cold (see
+    :meth:`PlanCache.anchor`)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(b"delta;")
+    h.update(key.encode())
+    h.update(delta.signature())
     return h.hexdigest()
 
 
@@ -93,6 +108,8 @@ class PlanCacheStats:
     misses: int = 0
     evictions: int = 0
     expired: int = 0  # TTL drops (also counted as misses on lookup)
+    revalidated: int = 0  # delta-patched entries re-keyed in place
+    anchored: int = 0  # delta-chained keys re-homed to content keys
     bytes_in_use: int = 0
     entries: int = 0
     build_seconds: float = 0.0
@@ -150,6 +167,12 @@ class PlanCache:
         with self._lock:
             return self._live_entry(key) is not None
 
+    @property
+    def keys(self) -> list[str]:
+        """Keys in LRU order (least-recently-used first)."""
+        with self._lock:
+            return list(self._entries)
+
     def _live_entry(self, key: str) -> Optional[_Entry]:
         e = self._entries.get(key)
         if e is None:
@@ -172,6 +195,13 @@ class PlanCache:
             self._entries.move_to_end(key)
             self.stats.hits += 1
             return e.value
+
+    def peek(self, key: str) -> Optional[Any]:
+        """Look up without touching recency or hit/miss counters; still
+        drops entries past the TTL."""
+        with self._lock:
+            e = self._live_entry(key)
+            return e.value if e is not None else None
 
     def put(self, key: str, value: Any, nbytes: Optional[int] = None) -> None:
         if nbytes is None:
@@ -215,6 +245,52 @@ class PlanCache:
             if nb <= self.max_bytes:
                 self.put(key, value, nb)
             return value
+
+    def revalidate(
+        self,
+        key: str,
+        delta: Any,
+        patch: Optional[Callable[[Any], Any]] = None,
+    ) -> str:
+        """Re-key the entry at ``key`` for a delta-mutated graph instead of
+        letting the mutation become a full miss.
+
+        Returns ``delta_key(key, delta)``, the key the patched plan lives
+        under.  If the entry is live and ``patch`` is given, the cached
+        value is patched (``patch(value)``, typically
+        ``stream.apply_delta``), stored under the new key and counted in
+        ``stats.revalidated``; the old key is dropped.  If the entry is
+        absent (evicted or expired) the new key is still returned, so the
+        caller's next ``get_or_build`` rebuilds from the mutated source:
+        revalidation degrades to a plain miss, never to a stale hit.
+        """
+        new_key = delta_key(key, delta)
+        with self._lock:
+            e = self._live_entry(key)
+            if e is None or patch is None:
+                return new_key
+            self._entries.pop(key)
+            self.stats.bytes_in_use -= e.nbytes
+            self.stats.entries = len(self._entries)
+            self.put(new_key, patch(e.value))
+            self.stats.revalidated += 1
+            return new_key
+
+    def anchor(self, key: str, content_key: str) -> str:
+        """Re-home a live entry from a delta-chained key to the content key
+        of its *current* adjacency, so an untracked client submitting the
+        same graph hits it.  Counted in ``stats.anchored``; if the entry is
+        dead the content key is still returned, so the next build lands
+        content-addressed."""
+        with self._lock:
+            e = self._live_entry(key)
+            if e is None or content_key == key:
+                return content_key
+            self._entries.pop(key)
+            self.stats.bytes_in_use -= e.nbytes
+            self.put(content_key, e.value, e.nbytes)
+            self.stats.anchored += 1
+            return content_key
 
     def _evict(self) -> None:
         while self._entries and (

@@ -42,9 +42,7 @@ everything between ``submit()`` and the forward launch:
   is concurrently reading the tracked adjacency or revalidating the plan
   cache.  ``update()`` blocks until the scheduler acknowledges, so the
   caller's happens-before is preserved: every request submitted after
-  ``update()`` returns serves the post-delta graph.  (The port's engine
-  gains ``update()`` with its delta slice; the control channel is here
-  already, as in the reference.)
+  ``update()`` returns serves the post-delta graph.
 
 The synchronous path survives as the degenerate case: ``engine.run()``
 calls :meth:`Scheduler.drain`, which forms waves with a zero absorb
@@ -340,7 +338,7 @@ class Scheduler:
                 and len(batch) < eng.cfg.max_batch_graphs
             )
             if fits:
-                aligned = -(-r.adj.shape[0] // T) * T
+                aligned = -(-eng._resolve_adj(r).shape[0] // T) * T
                 fits = not batch or nodes + aligned <= eng.cfg.max_batch_nodes
             if fits:
                 batch.append(r)
@@ -583,7 +581,7 @@ class Scheduler:
         T = eng.layout.tile
         out: dict[str, int] = {}
         for r in self.queue.items():
-            aligned = -(-r.adj.shape[0] // T) * T
+            aligned = -(-eng._resolve_adj(r).shape[0] // T) * T
             b = _bucket_nodes(aligned, eng.cfg.node_buckets, T)
             key = f"{r.model}:n{b}"
             out[key] = out.get(key, 0) + 1

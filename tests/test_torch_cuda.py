@@ -304,3 +304,80 @@ def test_back_to_back_launches_give_identical_bits(dev, monkeypatch):
             assert not bool(c.any())
     want = ref.scv_spmm_reference_plan(plan, z)
     assert (first - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# plans patched on the card by stream.apply_delta
+# ---------------------------------------------------------------------------
+def _perm_ints(plan):
+    """Integer values from each slot's source id: a patched plan and its
+    rebuild get the same values."""
+    return dataclasses.replace(plan, segments=tuple(
+        dataclasses.replace(s, vals=torch.where(s.perm >= 0, (s.perm % 9 - 4).float(),
+                                                torch.zeros((), device=s.device)))
+        for s in plan.segments))
+
+
+def _tile_inserts(adj, tile, k):
+    """``k`` absent coordinates inside the tile of entry 0."""
+    have = set(zip(adj.rows.tolist(), adj.cols.tolist()))
+    r0, c0 = int(adj.rows[0]) // tile * tile, int(adj.cols[0]) // tile * tile
+    free = [(r, c) for r in range(r0, min(r0 + tile, adj.shape[0]))
+            for c in range(c0, min(c0 + tile, adj.shape[1])) if (r, c) not in have]
+    return free[:k]
+
+
+@pytest.mark.parametrize("kind", ["value update", "tile births", "net shrink"])
+def test_plan_patched_on_card_equals_rebuild(dev, kind):
+    from repro_torch.core.validate import run_index_diff, validate_plan
+    from repro_torch.stream import DeltaBatch, apply_coo, apply_delta
+
+    adj = gcn_normalize(powerlaw_graph(3000, 15000, seed=4))
+    rng = np.random.default_rng(5)
+    idx = rng.choice(adj.nnz, 40, replace=False)
+    coords = [(int(adj.rows[i]), int(adj.cols[i])) for i in idx]
+    if kind == "value update":
+        d = DeltaBatch.of(inserts=[(r, c, 0.25) for r, c in coords], removes=coords)
+    elif kind == "tile births":
+        d = DeltaBatch.of(inserts=[(2999 - i, 7 * i, 0.5) for i in range(40)
+                                   if not ((adj.rows == 2999 - i) & (adj.cols == 7 * i)).any()])
+    else:
+        d = DeltaBatch.of(inserts=[(r, c, 0.5) for r, c in _tile_inserts(adj, 64, 5)],
+                          removes=coords)
+    g = build_graph(adj, bucket_caps=(8, 32, 128), device=dev)
+    patched = apply_delta(g, d)
+    final = apply_coo(adj, d)
+    rebuilt = build_graph(final, bucket_caps=(8, 32, 128), device=dev)
+    for a, b in zip(patched.plan.segments, rebuilt.plan.segments):
+        for f in ("tile_row", "tile_col", "rows", "cols", "vals", "nnz_in_tile", "perm"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y), f
+        assert run_index_diff(a.runs, b.runs) == ()
+        assert a.runs.units.device.type == "cuda"
+    assert validate_plan(patched, coo=final).ok
+    z = torch.randint(-4, 5, (3000, 64), generator=torch.Generator().manual_seed(2)).float().to(dev)
+    got = scv_spmm_plan(_perm_ints(patched.plan), z)
+    assert torch.equal(got, scv_spmm_plan(_perm_ints(rebuilt.plan), z))
+    assert torch.equal(got, ref.scv_spmm_reference_plan(_perm_ints(rebuilt.plan), z))
+
+
+def test_patched_tile_takes_the_dense_branch(dev):
+    from repro_torch.stream import DeltaBatch, apply_coo, apply_delta
+
+    adj = gcn_normalize(powerlaw_graph(2000, 8000, seed=6))
+    ladder = (8, 32, 128, 512)  # a rung above T^2/16 = 256
+    g = build_graph(adj, bucket_caps=ladder, device=dev)
+    z = torch.randint(-4, 5, (2000, 32), generator=torch.Generator().manual_seed(3)).float().to(dev)
+    kmod.reset_counts()
+    scv_spmm_plan(_perm_ints(g.plan), z)
+    torch.cuda.synchronize()
+    assert kmod.dense_launches == 0
+    d = DeltaBatch.of(inserts=[(r, c, 1.0) for r, c in _tile_inserts(adj, 64, 300)])
+    patched = apply_delta(g, d)
+    rebuilt = build_graph(apply_coo(adj, d), bucket_caps=ladder, device=dev)
+    assert patched.plan.segments[3].runs.max_nnz > dense_tile_threshold(64)
+    kmod.reset_counts()
+    got = scv_spmm_plan(_perm_ints(patched.plan), z)
+    torch.cuda.synchronize()
+    assert kmod.dense_launches == 1
+    assert torch.equal(got, ref.scv_spmm_reference_plan(_perm_ints(rebuilt.plan), z))

@@ -1,12 +1,18 @@
 """The port's serving engine against the reference's: the same request
 stream through both ``GraphServeEngine``s gives the same outputs (rtol =
-atol = 1e-5) and the same count of kernel launches, and the port's
-engine refuses what later slices of the port bring."""
+atol = 1e-5) and the same count of kernel launches — tracked graphs and
+their ``update()`` deltas included, between waves and under the async
+loop — ``debug_validate`` accepts good composites and raises on a corrupt
+member, and the port's engine refuses what later slices of the port
+bring."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from repro import stream as jstream
 from repro.core.formats import COOMatrix as JCOO
 from repro.models import gnn as jgnn
 from repro.serve import graph_engine as jeng
@@ -14,7 +20,9 @@ from repro_torch.launch import graph_serve as tlaunch
 from repro_torch.models import gnn as tgnn
 from repro_torch.serve import graph_engine as teng
 from repro_torch.serve.plan_cache import PlanCache, plan_nbytes
+from repro_torch.core.validate import PlanInvariantError
 from repro_torch.simul.datasets import gcn_normalize, powerlaw_graph
+from repro_torch.stream import DeltaBatch, apply_coo
 
 ENGINE_KW = dict(max_batch_graphs=4, max_batch_nodes=1024, node_buckets=(512, 1024))
 
@@ -23,14 +31,15 @@ def _pool(sizes=(90, 200, 140, 310, 60)):
     return [gcn_normalize(powerlaw_graph(n, 3 * n, seed=i)) for i, n in enumerate(sizes)]
 
 
-def _engines(kind, d_in=8):
+def _engines(kind, d_in=8, **cfg):
     jcfg = jgnn.GNNConfig(name=kind, kind=kind, d_in=d_in, d_hidden=16, n_classes=4,
                           backend="jnp")
     tcfg = tgnn.GNNConfig(name=kind, kind=kind, d_in=d_in, d_hidden=16, n_classes=4)
     jparams, _ = jgnn.init_gnn(jax.random.PRNGKey(0), jcfg)
     tparams = tgnn.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
-    je = jeng.GraphServeEngine({kind: (jparams, jcfg)}, jeng.GraphEngineConfig(**ENGINE_KW))
-    te = teng.GraphServeEngine({kind: (tparams, tcfg)}, teng.GraphEngineConfig(**ENGINE_KW),
+    kw = {**ENGINE_KW, **cfg}
+    je = jeng.GraphServeEngine({kind: (jparams, jcfg)}, jeng.GraphEngineConfig(**kw))
+    te = teng.GraphServeEngine({kind: (tparams, tcfg)}, teng.GraphEngineConfig(**kw),
                                device="cpu")
     return je, te
 
@@ -116,7 +125,6 @@ def test_submit_validates_requests():
     ("autotune", True, "tuner"),
     ("shard_nodes_threshold", 1024, "sharding"),
     ("shard_nnz_threshold", 10, "sharding"),
-    ("debug_validate", True, "checks"),
 ])
 def test_config_refuses_later_slices(field, value, slice_name):
     with pytest.raises(ValueError, match=slice_name):
@@ -162,3 +170,294 @@ def test_plan_nbytes_counts_tensors_and_arrays():
     cache = PlanCache(max_entries=4, max_bytes=nb)
     cache.put("g", g)
     assert cache.stats.bytes_in_use == nb
+
+
+# ---------------------------------------------------------------------------
+# tracked graphs: graph_id, update(), anchoring, debug validation
+# ---------------------------------------------------------------------------
+def _jcoo(a):
+    return JCOO(a.rows, a.cols, a.vals, a.shape)
+
+
+def _jdelta(d):
+    return jstream.DeltaBatch(d.ins_rows, d.ins_cols, d.ins_vals, d.rem_rows, d.rem_cols)
+
+
+def _mixed_delta(rng, adj, n_update, n_remove, n_insert):
+    """Value updates, removes and inserts of fresh edges on ``adj``."""
+    idx = rng.choice(adj.nnz, size=n_update + n_remove, replace=False)
+    coords = [(int(adj.rows[i]), int(adj.cols[i])) for i in idx]
+    have = set(zip(adj.rows.tolist(), adj.cols.tolist()))
+    fresh = []
+    while len(fresh) < n_insert:
+        r, c = (int(v) for v in rng.integers(adj.shape[0], size=2))
+        if (r, c) not in have and (r, c) not in fresh:
+            fresh.append((r, c))
+    inserts = [(r, c, float(rng.uniform(0.1, 1.0))) for r, c in coords[:n_update] + fresh]
+    return DeltaBatch.of(inserts=inserts, removes=coords)
+
+
+def _submit_both(je, te, rid, x, adj=None, graph_id=None, model="gcn"):
+    je.submit(jeng.GraphRequest(rid=rid, adj=None if adj is None else _jcoo(adj), x=x,
+                                model=model, graph_id=graph_id))
+    te.submit(teng.GraphRequest(rid=rid, adj=adj, x=x, model=model, graph_id=graph_id))
+
+
+def _run_both(je, te):
+    jdone = {r.rid: r.out for r in je.run()}
+    tdone = {r.rid: r.out for r in te.run()}
+    assert sorted(jdone) == sorted(tdone)
+    for rid in jdone:
+        np.testing.assert_allclose(tdone[rid], jdone[rid], rtol=1e-5, atol=1e-5)
+    return tdone
+
+
+@pytest.mark.parametrize("kind", ["gcn", "gat"])
+def test_tracked_updates_between_waves_match_reference_engine(kind):
+    pool = _pool()
+    je, te = _engines(kind, anchor_every=3)
+    rng = np.random.default_rng(8)
+    xs = [rng.standard_normal((a.shape[0], 8)).astype(np.float32) for a in pool]
+    # two tracked graphs and an untracked one share the waves
+    _submit_both(je, te, 0, xs[0], adj=pool[0], graph_id="a", model=kind)
+    _submit_both(je, te, 1, xs[1], adj=pool[1], graph_id="b", model=kind)
+    _submit_both(je, te, 2, xs[2], adj=pool[2], model=kind)
+    _run_both(je, te)
+    rid = 3
+    for step in range(4):
+        for gid, k in (("a", 0), ("b", 1)):
+            cur = te.tracked_adj(gid)
+            d = _mixed_delta(rng, cur, 3, 2 + step % 2, 2 + step)
+            assert te.update(gid, d) == je.update(gid, _jdelta(d))
+        for gid, k in (("a", 0), ("b", 1)):
+            _submit_both(je, te, rid, xs[k], graph_id=gid, model=kind)
+            rid += 1
+        _submit_both(je, te, rid, xs[2], adj=pool[2], model=kind)
+        rid += 1
+        _run_both(je, te)
+    for gid in ("a", "b"):
+        t, j = te.tracked_adj(gid), je.tracked_adj(gid)
+        for f in ("rows", "cols", "vals"):
+            np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
+    jm, tm = je.metrics(), te.metrics()
+    for k in ("graph_updates", "plan_cache_revalidated", "plan_cache_anchored", "launches",
+              "tracked_graphs", "batches"):
+        assert tm[k] == jm[k], k
+    assert tm["graph_updates"] == tm["plan_cache_revalidated"] == 8
+    assert tm["plan_cache_anchored"] == 2  # each graph crossed anchor_every = 3 once
+
+
+def test_tracked_output_is_the_rebuilt_post_delta_graph():
+    adj = _pool((200,))[0]
+    _, te = _engines("gcn")
+    x = np.random.default_rng(9).standard_normal((200, 8)).astype(np.float32)
+    te.submit(teng.GraphRequest(rid=0, adj=adj, x=x, model="gcn", graph_id="g"))
+    before = te.run()[0].out
+    d = _mixed_delta(np.random.default_rng(10), adj, 4, 3, 5)
+    te.submit(teng.GraphRequest(rid=1, x=x, model="gcn", graph_id="g"))
+    te.update("g", d)  # lands while rid 1 is queued: served at wave time
+    after = te.run()[0].out
+    params, mcfg = te.models["gcn"]
+    g = tgnn.build_graph(apply_coo(adj, d), bucket_caps=te.cfg.bucket_caps, device="cpu")
+    want = tgnn.gnn_forward(params, mcfg, g, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(after, want, rtol=1e-5, atol=1e-5)
+    assert np.abs(after - before).max() > 0
+    m = te.metrics()
+    assert (m["graph_updates"], m["plan_cache_revalidated"], m["tracked_graphs"]) == (1, 1, 1)
+
+
+def test_tracked_updates_under_async_loop_match_reference_engine():
+    pool = _pool()
+    je, te = _engines("gcn")
+    rng = np.random.default_rng(11)
+    xs = [rng.standard_normal((a.shape[0], 8)).astype(np.float32) for a in pool[:3]]
+    deltas, cur = [], pool[0]
+    for step in range(3):
+        d = _mixed_delta(rng, cur, 3, 2, 3)
+        deltas.append(d)
+        cur = apply_coo(cur, d)
+    # the reference serves the sequence synchronously
+    je.submit(jeng.GraphRequest(rid=0, adj=_jcoo(pool[0]), x=xs[0], model="gcn", graph_id="g"))
+    je.run()
+    want = {}
+    for step, d in enumerate(deltas):
+        je.update("g", _jdelta(d))
+        je.submit(jeng.GraphRequest(rid=10 + step, x=xs[0], model="gcn", graph_id="g"))
+        want[10 + step] = je.run()[0].out
+    te.start()
+    try:
+        te.submit(teng.GraphRequest(rid=0, adj=pool[0], x=xs[0], model="gcn",
+                                    graph_id="g")).result(timeout=60)
+        got = {}
+        for step, d in enumerate(deltas):
+            # co-traffic in flight while the update goes through the loop
+            noise = [te.submit(teng.GraphRequest(rid=100 + 10 * step + i, adj=pool[1 + i],
+                                                 x=xs[1 + i], model="gcn")) for i in range(2)]
+            te.update("g", d)
+            probe = te.submit(teng.GraphRequest(rid=10 + step, x=xs[0], model="gcn",
+                                                graph_id="g"))
+            got[probe.rid] = probe.result(timeout=60)
+            for r in noise:
+                r.result(timeout=60)
+    finally:
+        te.stop(timeout=30)
+    for rid, out in want.items():
+        np.testing.assert_allclose(got[rid], out, rtol=1e-5, atol=1e-5)
+    m = te.metrics()
+    # the member plan was cached by the first wave: every update patched it
+    assert m["graph_updates"] == m["plan_cache_revalidated"] == 3
+    for f in ("rows", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(te.tracked_adj("g"), f), getattr(cur, f))
+
+
+def test_anchor_rejoins_content_keys_and_counts():
+    adj = _pool((150,))[0]
+    x = np.ones((150, 8), np.float32)
+    rng = np.random.default_rng(12)
+    for every, anchored in ((2, 2), (0, 0)):
+        _, te = _engines("gcn", anchor_every=every)
+        te.submit(teng.GraphRequest(rid=0, adj=adj, x=x, model="gcn", graph_id="g"))
+        te.run()
+        for _ in range(4):
+            key = te.update("g", _mixed_delta(rng, te.tracked_adj("g"), 2, 0, 0))
+        m = te.metrics()
+        assert m["plan_cache_anchored"] == anchored
+        assert m["plan_cache_revalidated"] == m["graph_updates"] == 4
+        content = te._member_content_key(te.tracked_adj("g"))
+        assert (key == content) == bool(every)
+        if every:
+            # an untracked client sending the same graph hits the member entry
+            misses = m["plan_cache_misses"]
+            te.submit(teng.GraphRequest(rid=1, adj=te.tracked_adj("g"), x=x, model="gcn"))
+            te.run()
+            assert te.metrics()["plan_cache_misses"] == misses + 1  # the composite only
+
+
+def test_tracked_graph_errors_and_noops():
+    adj = _pool((60,))[0]
+    _, te = _engines("gcn")
+    x = np.zeros((60, 8), np.float32)
+    with pytest.raises(KeyError, match="unknown graph_id"):
+        te.update("nope", DeltaBatch.of(inserts=[(0, 1, 1.0)]))
+    with pytest.raises(KeyError, match="unknown graph_id"):
+        te.tracked_adj("nope")
+    with pytest.raises(KeyError, match="unknown graph_id"):
+        te.submit(teng.GraphRequest(rid=0, x=x, model="gcn", graph_id="g"))
+    with pytest.raises(ValueError, match="needs adj"):
+        te.submit(teng.GraphRequest(rid=0, x=x, model="gcn"))
+    te.submit(teng.GraphRequest(rid=0, adj=adj, x=x, model="gcn", graph_id="g"))
+    assert te.tracked_adj("g") is adj
+    key = te._graphs["g"].key
+    assert te.update("g", DeltaBatch.of()) == key
+    with pytest.raises(ValueError, match="out of range"):
+        te.update("g", DeltaBatch.of(inserts=[(99, 0, 1.0)]))
+    with pytest.raises(ValueError, match="already-present"):
+        te.update("g", DeltaBatch.of(inserts=[(int(adj.rows[0]), int(adj.cols[0]), 1.0)]))
+    assert te.metrics()["graph_updates"] == 0
+    # re-registering resets the lineage to the content key
+    te.update("g", _mixed_delta(np.random.default_rng(1), adj, 1, 0, 0))
+    assert te._graphs["g"].key != key
+    te.submit(teng.GraphRequest(rid=1, adj=adj, x=x, model="gcn", graph_id="g"))
+    assert te._graphs["g"].key == key
+    assert len(te.run()) == 2
+
+
+def test_debug_validate_accepts_good_composites():
+    pool = _pool()
+    _, te = _engines("gcn", debug_validate=True)
+    _, plain = _engines("gcn")
+    rng = np.random.default_rng(13)
+    for eng in (te, plain):
+        for rid, a in enumerate(pool):
+            eng.submit(teng.GraphRequest(rid=rid, adj=a, x=np.ones((a.shape[0], 8), np.float32),
+                                         model="gcn", graph_id=f"g{rid}"))
+        eng.run()
+    d = _mixed_delta(rng, pool[0], 3, 2, 4)
+    for eng in (te, plain):
+        eng.update("g0", d)
+        eng.submit(teng.GraphRequest(rid=9, x=np.ones((pool[0].shape[0], 8), np.float32),
+                                     model="gcn", graph_id="g0"))
+    np.testing.assert_array_equal(te.run()[0].out, plain.run()[0].out)
+    assert te.metrics()["failed"] == 0
+
+
+def test_debug_validate_raises_on_corrupt_member(monkeypatch):
+    real_build = teng.build_graph
+
+    def corrupt_build(*a, **k):
+        g = real_build(*a, **k)
+        seg0 = g.plan.segments[0]
+        nnz = seg0.nnz_in_tile.clone()
+        nnz[0] = seg0.cap + 7  # cap invariant broken
+        segs = (dataclasses.replace(seg0, nnz_in_tile=nnz),) + g.plan.segments[1:]
+        return dataclasses.replace(g, plan=dataclasses.replace(g.plan, segments=segs))
+
+    monkeypatch.setattr(teng, "build_graph", corrupt_build)
+    adj = _pool((60,))[0]
+    for debug in (True, False):
+        _, te = _engines("gcn", debug_validate=debug, max_retries=0)
+        te.submit(teng.GraphRequest(rid=0, adj=adj, x=np.zeros((60, 8), np.float32),
+                                    model="gcn"))
+        if debug:
+            with pytest.raises(PlanInvariantError, match="cap"):
+                te.run()
+        else:
+            # without the check only the launch wrapper's own test of the
+            # run index stops it, with no invariant named
+            with pytest.raises(ValueError, match="over the cap") as ei:
+                te.run()
+            assert not isinstance(ei.value, PlanInvariantError)
+        assert te.metrics()["failed"] == 1
+
+
+# ---------------------------------------------------------------------------
+# plan cache: delta keys, revalidation, anchoring
+# ---------------------------------------------------------------------------
+class _Clock:
+    now = 0.0
+
+    def __call__(self):
+        return self.now
+
+
+def test_delta_key_matches_reference_and_chains():
+    from repro.serve.plan_cache import delta_key as j_delta_key
+    from repro_torch.serve.plan_cache import coo_content_key, delta_key
+
+    k = coo_content_key(_pool((50,))[0], tile=64)
+    d1, d2 = DeltaBatch.of(inserts=[(0, 1, 2.0)]), DeltaBatch.of(removes=[(0, 2)])
+    assert delta_key(k, d1) == j_delta_key(k, _jdelta(d1))
+    assert delta_key(k, d1) != delta_key(k, d2) and delta_key(k, d1) != k
+    assert delta_key(delta_key(k, d1), d2) != delta_key(delta_key(k, d2), d1)
+
+
+@pytest.mark.parametrize("case", ["live", "absent", "no patch", "expired"])
+def test_revalidate_cases(case):
+    from repro_torch.serve.plan_cache import delta_key
+
+    clock = _Clock()
+    c = PlanCache(max_entries=4, max_age_s=1.0, clock=clock)
+    d = DeltaBatch.of(inserts=[(0, 1, 2.0)])
+    if case != "absent":
+        c.put("k", 10, nbytes=8)
+    if case == "expired":
+        clock.now = 5.0
+    new_key = c.revalidate("k", d, patch=None if case == "no patch" else (lambda v: v + 1))
+    assert new_key == delta_key("k", d)
+    if case == "live":
+        assert c.peek("k") is None and c.peek(new_key) == 11 and c.keys == [new_key]
+        assert c.stats.revalidated == 1 and len(c) == 1
+    else:  # degrades to a miss on the next lookup, never to a stale hit
+        assert c.peek(new_key) is None and c.stats.revalidated == 0
+        assert c.peek("k") == (10 if case == "no patch" else None)
+
+
+def test_anchor_rehomes_live_entries_only():
+    c = PlanCache(max_entries=4)
+    c.put("lineage", 7, nbytes=8)
+    hits = c.stats.hits
+    assert c.anchor("lineage", "content") == "content"
+    assert c.keys == ["content"] and c.peek("content") == 7
+    assert c.stats.anchored == 1 and c.stats.bytes_in_use == 8 and c.stats.hits == hits
+    assert c.anchor("gone", "other") == "other" and c.stats.anchored == 1
+    assert c.anchor("content", "content") == "content" and c.stats.anchored == 1

@@ -43,7 +43,8 @@ def test_port_has_modules():
     assert {"repro_torch.kernels.scv_spmm.scv_spmm", "repro_torch.kernels.scv_spmm.ops",
             "repro_torch.kernels.scv_spmm.ref", "repro_torch.kernels.scv_spmm.build",
             "repro_torch.models.gnn", "repro_torch.simul.datasets",
-            "repro_torch.serve.graph_engine", "repro_torch.launch.graph_serve"} <= names
+            "repro_torch.serve.graph_engine", "repro_torch.launch.graph_serve",
+            "repro_torch.stream.delta", "repro_torch.core.validate"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],
