@@ -70,9 +70,24 @@ Phases, each of which fails the run on error:
     plan-cache revalidation, the kernel's launch count equal to the
     engine's; queries/s and updates/s per rate, and a wave's time split
     into update, composite assembly, copy to the card and forward.
+12. The sharding executor (``core.exec.PlanExecutor``) over a pool of four
+    slots on the card (and, with two cards or more, over the cards too).
+    The arxiv-scale plan placed as ``tiles`` 4x1, ``features`` 1x2 (F =
+    128), ``2d`` 2x2 and what ``PlanExecutor.decide`` picks, at F = 128
+    and 40: ``validate_plan`` green, the sharded aggregation bit-exact with
+    the unsharded kernel chain on integer values and within 1e-5 of the
+    plain version on normalised ones, kernel launches equal to
+    ``plan_launches``; prepare, each grid cell's chain, the merge and the
+    whole call timed.  The gcn-paper forward over the graph placed
+    ``tiles`` 4x1 against the plain forward (1e-4) and one ``gnn_loss``
+    step's gradients against the unsharded kernel path (1e-4).  A serving
+    burst from the hot-graph pool through an engine with the executor,
+    waves over 4,096 entries placed: outputs within 1e-4 of a plain
+    forward, launches equal to the engine's, and the burst repeated from
+    placed composites in the cache.
 
-Each of phases 4, 5, 8, 9, 10 and 11 sets the kernels' launch counts to 0
-just before it drives its path and reads them just after.  The line before the last is a JSON
+Each of phases 4, 5, 8, 9, 10, 11 and 12 sets the kernels' launch counts
+to 0 just before it drives its path and reads them just after.  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -114,6 +129,10 @@ DELTA_STREAM = ("value update", "value update", "inserts + removes", "value upda
 DENSE_LADDER = (8, 32, 128, 512)  # the engine's ladder and a rung above T^2/16
 TRACKED_RATES = (0, 1, 4)  # value-update deltas between tracked waves
 TRACKED_WAVES = 3
+SHARD_SLOTS = 4  # devices in phase 12's executor pool
+SHARD_DECISIONS = (("tiles", 4, 1), ("features", 1, 2), ("2d", 2, 2))  # and what decide picks
+SHARD_NNZ_THRESHOLD = 4096  # phase 12's serving: a wave holding more entries is placed
+SHARD_REQUESTS = 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -341,13 +360,17 @@ def graphs_equal(a, b) -> list[str]:
     return bad
 
 
+def perm_ints(seg):
+    """``seg`` with integer values -4..4 drawn from each slot's source id (0
+    in padding): a patched plan and its rebuild, or a plan and its spans,
+    get the same values."""
+    v = torch.where(seg.perm >= 0, (seg.perm % 9 - 4).float(), torch.zeros((), device=seg.device))
+    return dataclasses.replace(seg, vals=v)
+
+
 def perm_int_plan(plan):
-    """``plan`` with integer values -4..4 drawn from each slot's source id
-    (0 in padding): a patched plan and its rebuild get the same values."""
-    def ints(s):
-        v = torch.where(s.perm >= 0, (s.perm % 9 - 4).float(), torch.zeros((), device=s.device))
-        return dataclasses.replace(s, vals=v)
-    return dataclasses.replace(plan, segments=tuple(ints(s) for s in plan.segments))
+    """``plan`` with :func:`perm_ints` values in every segment."""
+    return dataclasses.replace(plan, segments=tuple(perm_ints(s) for s in plan.segments))
 
 
 def expected_dense(plan) -> int:
@@ -563,6 +586,287 @@ def tracked_serving(adj, cfg, layout, dev) -> dict:
           f"engine launches {m['launches']}, worst rel err vs plain forward on the rebuilt "
           f"graph {worst:.2e}")
     return dict(results=results, launches=launches, updates=n_updates, worst=worst)
+
+
+def sync_all(dev) -> None:
+    """Wait for every card (a placed plan's spans may run on several)."""
+    if dev.type == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def shard_pools(dev) -> list:
+    """Phase 12's executor pools: ``SHARD_SLOTS`` slots on ``dev``'s card,
+    and with two cards or more also the cards themselves (repeated up to
+    ``SHARD_SLOTS``)."""
+    pools = [(f"{SHARD_SLOTS} slots on one card", (dev,) * SHARD_SLOTS)]
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n >= 2:
+        pools.append((f"{n} cards", tuple(torch.device(f"cuda:{i % n}")
+                                          for i in range(SHARD_SLOTS))))
+    return pools
+
+
+def sharded_ints(sp):
+    """A placed plan with :func:`perm_ints` values in every span."""
+    return dataclasses.replace(sp, segments=tuple(
+        tuple(perm_ints(s) for s in spans) for spans in sp.segments))
+
+
+def shard_placements(g, ex, n_feat: int, gen, dev, placed: dict) -> list:
+    """Phase 12, placement: ``g``'s plan on ``ex``'s pool under each
+    decision at width ``n_feat``, held against the unsharded kernel chain
+    (integer values, bit for bit) and the plain version (normalised
+    values, 1e-5 of its largest magnitude), with the kernel's launches
+    against ``plan_launches`` and the times of prepare, each grid cell's
+    chain, the merge and the whole call.  ``placed`` keeps placements by
+    decision across widths.  Returns one dict per decision."""
+    from repro_torch.core.exec import (
+        ShardingDecision, aggregate_sharded, merge_partials, placement_bytes)
+    from repro_torch.core.partition import shard_plan, split_equal_nnz
+    from repro_torch.core.validate import validate_plan
+    from repro_torch.kernels.scv_spmm import ref
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+    from repro_torch.serve.graph_engine import plan_launches
+    from repro_torch.tune.cost import plan_launched_slots
+
+    plan = g.plan
+    n_rows, n_cols = plan.shape
+    nnz = sum(int(s.nnz_in_tile.sum()) for s in plan.segments)
+    z_int = torch.randint(-4, 5, (n_cols, n_feat), generator=gen).float().to(dev)
+    z = torch.randn((n_cols, n_feat), generator=gen).to(dev)
+    want_int = scv_spmm_plan(perm_int_plan(plan), z_int)[:n_rows]
+    plain = ref.scv_spmm_reference_plan(plan, z)[:n_rows]
+    chain_ms = device_ms(lambda: scv_spmm_plan(plan, z), 10)
+    picked = ex.decide(plan, n_feat)
+    decisions = [ShardingDecision(*d) for d in SHARD_DECISIONS
+                 if d[0] != "features" or n_feat >= 128]
+    if picked.kind != "replicated" and picked not in decisions:
+        decisions.append(picked)
+    print(f"[shard] F={n_feat}: unsharded chain {chain_ms:.4f} ms; PlanExecutor.decide over "
+          f"{ex.n_devices} devices picks {picked.signature}")
+    rows = []
+    for d in decisions:
+        tp, fp = d.tile_parts, d.feature_parts
+        if d not in placed:
+            sync_all(dev)
+            t0 = time.perf_counter()
+            part = split_equal_nnz(plan, tp)
+            t1 = time.perf_counter()
+            shard_plan(plan, part)
+            sync_all(dev)
+            t2 = time.perf_counter()
+            sp = ex.prepare(plan, decision=d)
+            sync_all(dev)
+            t3 = time.perf_counter()
+            rep = validate_plan(sp)
+            check(rep.ok, f"placement {d.signature}: validate_plan\n{rep.summary()}")
+            placed[d] = (sp, dict(split_ms=1e3 * (t1 - t0), gather_ms=1e3 * (t2 - t1),
+                                  prepare_ms=1e3 * (t3 - t2)))
+        sp, prep = placed[d]
+        label = f"{d.signature} F={n_feat}"
+        sp_int = sharded_ints(sp)
+        sync_all(dev)
+        kmod.reset_counts()
+        got_int = aggregate_sharded(sp_int, z_int)
+        sync_all(dev)
+        n_launch = kmod.launches
+        check(n_launch == plan_launches(sp_int) > 0,
+              f"{label}: {n_launch} kernel launches, plan_launches {plan_launches(sp_int)}")
+        check(torch.equal(got_int, want_int),
+              f"{label}: not bit-exact with the unsharded chain on integers (max err "
+              f"{(got_int - want_int).abs().max().item()})")
+        err, scale = rel_err(aggregate_sharded(sp, z), plain)
+        check(err <= 1e-5 * scale, f"{label}: max err {err} > 1e-5 * {scale}")
+        whole_ms = device_ms(lambda: aggregate_sharded(sp, z), 10)
+        width = -(-n_feat // fp)
+        cell_ms, cell_lines, merge_ms = [], [], 0.0
+        for q in range(fp):
+            f0, f1 = q * width, min(n_feat, (q + 1) * width)
+            parts = []
+            for p in range(tp):
+                span = sp.span(p, q)
+                if span is None:
+                    continue
+                slab = z[:, f0:f1].to(sp.devices[p][q]).contiguous()
+                cell_ms.append(device_ms(lambda: scv_spmm_plan(span, slab, init="zeros"), 10))
+                # each launch of the cell's chain alone (each from its own zeros)
+                segs = getattr(span, "segments", (span,))
+                seg_ms = [device_ms(lambda s=s: scv_spmm_plan(s, slab, init="zeros"), 10)
+                          for s in segs]
+                cell_lines.append(
+                    f"cell ({p}, {q}) {cell_ms[-1]:.4f} ms; alone: " + ", ".join(
+                        f"cap {s.cap} {t:.4f} ms ({s.runs.n_units} units, heaviest "
+                        f"{s.runs.max_unit_work} work)" for s, t in zip(segs, seg_ms)))
+                parts.append(scv_spmm_plan(span, slab, init="zeros"))
+            merge_ms += device_ms(lambda: merge_partials(
+                parts, sp.device, (plan.padded_shape[0], f1 - f0)), 10)
+        pb = placement_bytes(nnz, n_feat, tp, fp, n_rows=n_rows,
+                             n_slots=plan_launched_slots(plan))
+        row = dict(decision=d.signature, n_feat=n_feat, launches=n_launch, whole_ms=whole_ms,
+                   chain_ms=chain_ms, cell_ms=cell_ms, merge_ms=merge_ms,
+                   imbalance=sp.imbalance, placement_total=pb["total"], err=err, **prep)
+        rows.append(row)
+        print(f"[shard] {label}: {n_launch} launches = plan_launches, integer bit-exact with "
+              f"the unsharded chain, max err {err:.2e} (max |plain| {scale:.2e}); "
+              f"imbalance {sp.imbalance:.4f}, placement_bytes total {pb['total'] / 1e6:.2f} MB "
+              f"per device (z_gather {pb['z_gather'] / 1e6:.2f}, collective "
+              f"{pb['collective'] / 1e6:.2f}); prepare {prep['prepare_ms']:.1f} ms (split "
+              f"alone {prep['split_ms']:.1f}, gather alone {prep['gather_ms']:.1f}); whole call "
+              f"{whole_ms:.4f} ms vs unsharded chain {chain_ms:.4f} ms; cell chains "
+              + ", ".join(f"{t:.4f}" for t in cell_ms)
+              + f" ms (sum {sum(cell_ms):.4f}); merge {merge_ms:.4f} ms")
+        for line in cell_lines:
+            print(f"[shard]   {label} {line}")
+    return rows
+
+
+def shard_model(g, cfg, ex, dev) -> dict:
+    """Phase 12, model: the gcn-paper forward over ``g`` placed ``tiles``
+    4x1, against the plain forward (1e-4), then one ``gnn_loss`` step whose
+    gradients are held against the unsharded kernel path (1e-4 of each
+    gradient's largest magnitude)."""
+    from repro_torch.core.exec import ShardingDecision
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.models.gnn import gnn_forward, gnn_loss, init_gnn
+    from repro_torch.serve.graph_engine import plan_launches
+
+    placed = ex.prepare_graph(g, decision=ShardingDecision("tiles", 4, 1))
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (g.n_nodes, cfg.d_in), np.float32)).to(dev)
+    reps = 3
+    with torch.inference_mode():
+        gnn_forward(params, cfg, placed, x)
+        sync_all(dev)
+        kmod.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = gnn_forward(params, cfg, placed, x)
+        sync_all(dev)
+        sharded_ms = 1e3 * (time.perf_counter() - t0) / reps
+        n_launch = kmod.launches
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            gnn_forward(params, cfg, g, x)
+        sync_all(dev)
+        unsharded_ms = 1e3 * (time.perf_counter() - t0) / reps
+        want = plain_gcn_forward(params, cfg, g, x)
+    check(n_launch == reps * cfg.n_layers * plan_launches(placed.plan),
+          f"sharded forward launched {n_launch} kernels")
+    check(tuple(out.shape) == (g.n_nodes, cfg.n_classes) and bool(torch.isfinite(out).all()),
+          "sharded forward output shape/finiteness")
+    err, scale = rel_err(out, want)
+    check(err <= 1e-4 * max(1.0, scale), f"sharded forward off the plain forward: {err}")
+    labels = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.n_classes, g.n_nodes)).to(dev)
+    mask = torch.ones(g.n_nodes, device=dev)
+    names = [f"{layer}.{k}" for layer, ps in params.items() for k in ps]
+    flat = [p.requires_grad_(True) for ps in params.values() for p in ps.values()]
+    grads = torch.autograd.grad(gnn_loss(params, cfg, placed, x, labels, mask), flat)
+    want_grads = torch.autograd.grad(gnn_loss(params, cfg, g, x, labels, mask), flat)
+    worst = 0.0
+    for name, a, b in zip(names, grads, want_grads):
+        gerr, gscale = rel_err(a, b)
+        check(gerr <= 1e-4 * gscale, f"sharded grad {name}: max err {gerr} > 1e-4 * {gscale}")
+        worst = max(worst, gerr / gscale)
+    print(f"[shard] 2-layer gcn-paper forward placed tiles:t4f1: {sharded_ms:.3f} ms per forward "
+          f"(host clock, {reps} forwards; unsharded {unsharded_ms:.3f} ms), {n_launch // reps} "
+          f"kernel launches each, max abs err vs plain forward {err:.3e} (max |plain| "
+          f"{scale:.3e}); one gnn_loss step's gradients vs the unsharded kernel path, worst "
+          f"max err / max |grad| {worst:.2e}")
+    return dict(sharded_ms=sharded_ms, unsharded_ms=unsharded_ms, launches=n_launch, err=err,
+                grad_err=worst)
+
+
+def shard_serving(cfg, layout, dev, pool_devices) -> dict:
+    """Phase 12, serving: a burst from the default hot-graph pool through an
+    engine whose executor holds ``pool_devices``, with waves over
+    ``SHARD_NNZ_THRESHOLD`` entries placed; every output against a plain
+    forward (1e-4), kernel launches against the engine's count, and the
+    same burst again served from placed composites in the cache."""
+    from repro_torch.core.exec import PlanExecutor
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.launch.graph_serve import build_default_engine, default_pool, make_requests
+    from repro_torch.models.gnn import build_graph
+    from repro_torch.serve.graph_engine import GraphRequest
+
+    pool = default_pool()
+    graphs = {id(a): build_graph(a, config=layout, device=dev) for a in pool}
+    engine = build_default_engine(model=cfg, device=dev, seed=0,
+                                  executor=PlanExecutor(devices=pool_devices),
+                                  shard_nnz_threshold=SHARD_NNZ_THRESHOLD)
+    params = engine.models["gcn"][0]
+    reqs = make_requests(np.random.default_rng(13), pool, SHARD_REQUESTS, cfg.d_in)
+    bursts, worst = [], 0.0
+    for again in (False, True):
+        if again:
+            reqs = [GraphRequest(rid=SHARD_REQUESTS + r.rid, adj=r.adj, x=r.x, model="gcn")
+                    for r in reqs]
+        before = engine.metrics()
+        for r in reqs:
+            engine.submit(r)
+        sync_all(dev)
+        kmod.reset_counts()
+        t0 = time.perf_counter()
+        engine.run()
+        sync_all(dev)
+        wall = time.perf_counter() - t0
+        launches = kmod.launches
+        m = engine.metrics()
+        check(launches == m["launches"] - before["launches"] > 0,
+              f"sharded serving: kernel launches {launches} != engine launches "
+              f"{m['launches'] - before['launches']}")
+        sharded = m["sharded_batches"] - before["sharded_batches"]
+        check(sharded > 0, "sharded serving: no wave went through the executor")
+        if again:
+            check(m["plan_cache_misses"] == before["plan_cache_misses"],
+                  "sharded serving: the repeated burst missed the composite cache")
+        for r in reqs:
+            check(r.done and r.out is not None, f"sharded serving: request {r.rid} not served")
+            want = plain_gcn_forward(params, cfg, graphs[id(r.adj)],
+                                     torch.from_numpy(r.x).to(dev)).cpu().numpy()
+            check(r.out.shape == want.shape and np.isfinite(r.out).all(),
+                  f"sharded serving: request {r.rid} output shape/finiteness")
+            worst = max(worst, float(np.abs(r.out - want).max() / max(1.0, np.abs(want).max())))
+        check(worst <= 1e-4, f"sharded serving: output off the plain forward by {worst}")
+        waves = m["batches"] - before["batches"]
+        bursts.append(dict(wall_s=wall, waves=waves, sharded=sharded, launches=launches))
+        print(f"[shard] serving burst of {len(reqs)}{' again' if again else ''}: {waves} waves, "
+              f"{sharded} placed (threshold {SHARD_NNZ_THRESHOLD} entries), "
+              f"{len(reqs) / wall:.1f} graphs/s, kernel launches {launches} = engine launches, "
+              f"composite cache hits {m['plan_cache_hits'] - before['plan_cache_hits']}, "
+              f"misses {m['plan_cache_misses'] - before['plan_cache_misses']}, worst rel err "
+              f"{worst:.2e}")
+    return dict(bursts=bursts, worst=worst)
+
+
+def shard_drive(g, cfg, layout, dev, gen) -> dict:
+    """Phase 12: the sharding executor on each pool of :func:`shard_pools`:
+    placement of ``g``'s plan at F = 128 and 40, the model, serving.
+    Returns the numbers of the run."""
+    from repro_torch.core.exec import PlanExecutor
+
+    t0 = time.perf_counter()
+    runs = []
+    for name, devices in shard_pools(dev):
+        ex = PlanExecutor(devices=devices)
+        print(f"[shard] {torch.cuda.device_count() if dev.type == 'cuda' else 0} card(s); "
+              f"pool '{name}': {[str(d) for d in ex.devices]}; spans share a card: "
+              f"{len(set(ex.devices)) < len(ex.devices)}")
+        placed = {}
+        rows = [r for f in (cfg.d_hidden, cfg.n_classes)
+                for r in shard_placements(g, ex, f, gen, dev, placed)]
+        del placed
+        model = shard_model(g, cfg, ex, dev)
+        serving = shard_serving(cfg, layout, dev, devices)
+        runs.append(dict(pool=name, placements=rows, model=model, serving=serving))
+    print(f"[shard] phase 12: {time.perf_counter() - t0:.1f} s")
+    return dict(runs=runs, launches=sum(
+        r["launches"] for run in runs for r in run["placements"]) + sum(
+        run["model"]["launches"] + sum(b["launches"] for b in run["serving"]["bursts"])
+        for run in runs))
 
 
 def main() -> int:
@@ -1068,8 +1372,13 @@ def main() -> int:
     # -- 11. tracked-graph serving ---------------------------------------------
     tracked = tracked_serving(arxiv_adj, cfg, layout, dev)
     torch.cuda.synchronize()
+
+    # -- 12. the sharding executor ------------------------------------------------
+    shard = shard_drive(arxiv, cfg, layout, dev, gen)
+    sync_all(dev)
     print(f"[paths] kernel launches: stream drive {stream['launches']} "
-          f"({stream['dense_launches']} dense), tracked serving {tracked['launches']}")
+          f"({stream['dense_launches']} dense), tracked serving {tracked['launches']}, "
+          f"sharding executor {shard['launches']}")
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

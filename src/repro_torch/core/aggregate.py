@@ -4,7 +4,8 @@ Port of the plan path of ``src/repro/core/aggregate.py``:
 
 * ``aggregate_scv_plan`` — the SCV kernel over an ``SCVPlan`` or
   ``SCVBucketedPlan`` (the CUDA kernel for CUDA tensors, its plain version
-  for CPU tensors), differentiable in ``z`` and in the plan's values;
+  for CPU tensors), or over a ``core.exec.ShardedPlan``'s device grid;
+  differentiable in ``z`` and in the plan's values;
 * ``aggregate_coo_segsum`` — row-major gather + ``index_add_`` over COO
   arrays, independent of the SCV layout: the tests' oracle.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.exec import ShardedPlan, aggregate_sharded
 from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
 
 
@@ -29,7 +31,10 @@ def aggregate_coo_segsum(
 
 
 def aggregate_scv_plan(p, z: torch.Tensor) -> torch.Tensor:
-    """SCV aggregation over a plan; returns ``[p.shape[0], F]``.  Gradients
-    reach ``z`` and the plan's values (GAT's re-weighted ones among them)
-    through ``ops.scv_spmm_plan``'s autograd Function."""
+    """SCV aggregation over a plan; returns ``[p.shape[0], F]``.  A placed
+    plan runs its grid (``core.exec.aggregate_sharded``).  Gradients reach
+    ``z`` and the plan's values (GAT's re-weighted ones among them) through
+    ``ops.scv_spmm_plan``'s autograd Function."""
+    if isinstance(p, ShardedPlan):
+        return aggregate_sharded(p, z)
     return scv_spmm_plan(p, z)[: p.shape[0]]

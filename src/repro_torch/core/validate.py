@@ -2,10 +2,11 @@
 
 Port of ``src/repro/core/validate.py``.  ``validate_plan`` takes any
 plan-like object (:class:`SCVTiles`, :class:`SCVPlan`,
-:class:`SCVBucketedPlan`, or a serve composite via ``models.gnn.Graph`` /
-``BatchedGraph``) and runs the invariant chain, returning a
-machine-readable :class:`ValidationReport`: per-invariant pass/fail plus
-the offending tile / segment indices.  The port's plans hold torch
+:class:`SCVBucketedPlan`, a placed ``core.exec.ShardedPlan``, or a graph
+or serve composite via ``models.gnn.Graph`` / ``BatchedGraph``) and runs
+the invariant chain, returning a machine-readable
+:class:`ValidationReport`: per-invariant pass/fail plus the offending
+tile / segment indices.  The port's plans hold torch
 tensors, possibly on the card; the checks read one host copy of each leaf
 (``.cpu()``, which waits for the stream) and run in numpy on the host.
 
@@ -41,8 +42,12 @@ One invariant is the port's own:
   behind by a patch of the plan's arrays sends the kernel a schedule that
   no longer matches its tiles.
 
-Sharded plans (the reference's ``ShardedPlan`` and its ``shard-span`` /
-``shard-coverage`` checks) come with the port's sharding slice.
+A placed plan (``core.exec.ShardedPlan``) gets the reference's sharded
+chain: **shard-span** (each segment holds ``decision.tile_parts`` spans),
+every span's own checks without full coverage (a span covers only the
+rows it visits) plus its **run-index**, **shard-coverage** (the first
+segment's spans jointly visit every block-row), and perm bijectivity and
+reassembly over all spans.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.exec import ShardedPlan
 from repro_torch.core.formats import COOMatrix
 from repro_torch.core.scv import RunIndex, SCVBucketedPlan, SCVPlan, SCVTiles
 
@@ -66,7 +72,7 @@ class InvariantResult:
     invariant: str  # "order" | "coverage" | "cap" | "packing" | ...
     ok: bool
     segment: Optional[int] = None  # capacity-bucket index, if any
-    part: Optional[int] = None  # sharded span index (the sharding slice)
+    part: Optional[int] = None  # sharded span index, if any
     offending: tuple[int, ...] = ()  # tile (or segment) indices at fault
     detail: str = ""
 
@@ -83,7 +89,7 @@ class InvariantResult:
 class ValidationReport:
     """Machine-readable outcome of :func:`validate_plan`."""
 
-    kind: str  # "tiles" | "plan" | "bucketed" | "graph" | "batched-graph"
+    kind: str  # "tiles" | "plan" | "bucketed" | "sharded" | "graph" | "batched-graph"
     checks: tuple[InvariantResult, ...]
 
     @property
@@ -566,9 +572,9 @@ def validate_plan(obj: Any, coo: Optional[COOMatrix] = None) -> ValidationReport
     """Verify the full invariant chain of any plan-like object.
 
     Accepts :class:`SCVTiles`, :class:`SCVPlan`, :class:`SCVBucketedPlan`,
-    ``models.gnn.Graph`` and ``models.gnn.BatchedGraph`` (serve
-    composites).  With ``coo`` given, also checks that the plan's real
-    entries byte-match the source COO.  Host-side; returns a
+    ``core.exec.ShardedPlan``, ``models.gnn.Graph`` and
+    ``models.gnn.BatchedGraph`` (serve composites).  With ``coo`` given,
+    also checks that the plan's real entries byte-match the source COO.  Host-side; returns a
     :class:`ValidationReport` (``.raise_if_failed()`` at admission
     boundaries).
     """
@@ -613,8 +619,58 @@ def validate_plan(obj: Any, coo: Optional[COOMatrix] = None) -> ValidationReport
             checks += _validate_reassembly([v for v, _ in views], coo, {})
         return ValidationReport(kind="bucketed", checks=tuple(checks))
 
+    if isinstance(obj, ShardedPlan):
+        return _validate_sharded(obj, coo)
+
     raise TypeError(
         f"validate_plan: unsupported object {type(obj).__name__}; expected "
-        "SCVTiles / SCVPlan / SCVBucketedPlan / Graph / BatchedGraph "
-        "(ShardedPlan comes with the port's sharding slice, core/exec.py)"
+        "SCVTiles / SCVPlan / SCVBucketedPlan / ShardedPlan / Graph / "
+        "BatchedGraph"
     )
+
+
+def _validate_sharded(sp: ShardedPlan, coo: Optional[COOMatrix]) -> ValidationReport:
+    checks: list[InvariantResult] = []
+    tp = sp.decision.tile_parts
+    views: list[tuple[_PlanView, dict]] = []
+    covered: dict[int, set] = {}
+    for j, spans in enumerate(sp.segments):
+        if len(spans) != tp:
+            checks.append(
+                InvariantResult(
+                    "shard-span", False, segment=j,
+                    detail=f"{len(spans)} spans != decision.tile_parts {tp}",
+                )
+            )
+            continue
+        for p, span in enumerate(spans):
+            v = _PlanView.of(span)
+            loc = {"segment": j, "part": p}
+            views.append((v, loc))
+            # a span covers only the rows its tiles visit
+            checks += _validate_single(v, loc, require_full_coverage=False, plan=span)
+            covered.setdefault(j, set()).update(int(r) for r in np.unique(v.tile_row))
+    # the spans of the FIRST segment must jointly visit every block-row: the
+    # coverage dummies live there only, and each span's chain starts from
+    # zeros, so later segments may visit any subset of rows
+    if sp.segments:
+        first = next((s for spans in sp.segments for s in spans), None)
+        nb = first.padded_shape[0] // first.tile if first is not None else 0
+        missing = sorted(set(range(nb)) - covered.get(0, set()))
+        checks.append(
+            InvariantResult(
+                "shard-coverage",
+                not missing,
+                segment=0,
+                offending=tuple(missing),
+                detail=(
+                    f"{len(missing)} block-row(s) unvisited by every span"
+                    if missing
+                    else ""
+                ),
+            )
+        )
+    checks += _check_perm_bijection(views, {})
+    if coo is not None:
+        checks += _validate_reassembly([v for v, _ in views], coo, {})
+    return ValidationReport(kind="sharded", checks=tuple(checks))

@@ -13,11 +13,16 @@ import torch
 
 def resolve_device(device) -> torch.device:
     """``torch.device`` for ``device``; raises if it names CUDA and no
-    CUDA device is available."""
+    CUDA device is available, or a CUDA index past the cards present."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but no CUDA device is available; "
             "pass device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but only {torch.cuda.device_count()} "
+            "CUDA device(s) are present"
         )
     return dev

@@ -180,10 +180,12 @@ def run_open_loop(
 
 
 def build_default_engine(
-    model: GNNConfig = DEFAULT_MODEL, device="cuda", seed: int = 0, **cfg_kw
+    model: GNNConfig = DEFAULT_MODEL, device="cuda", seed: int = 0, executor=None, **cfg_kw
 ) -> GraphServeEngine:
     """An engine serving ``model`` (registered as ``"gcn"``) with random
-    weights from ``seed``, in the default workload's engine config."""
+    weights from ``seed``, in the default workload's engine config;
+    ``executor`` (a ``core.exec.PlanExecutor``) places the composites over
+    a ``shard_*_threshold`` given in ``cfg_kw``."""
     params = init_gnn(torch.Generator().manual_seed(seed), model, device=device)
     kw = dict(
         max_batch_graphs=16, max_batch_nodes=8192,
@@ -191,7 +193,7 @@ def build_default_engine(
     )
     kw.update(cfg_kw)
     return GraphServeEngine(
-        {"gcn": (params, model)}, GraphEngineConfig(**kw), device=device
+        {"gcn": (params, model)}, GraphEngineConfig(**kw), device=device, executor=executor
     )
 
 

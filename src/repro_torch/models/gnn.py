@@ -4,6 +4,9 @@ Port of ``src/repro/models/gnn.py``.  Every model aggregates through
 ``core.aggregate.aggregate_scv_plan``, so on a CUDA graph every
 aggregation is the SCV kernel, and gradients flow back through it (the
 kernel chain is one ``torch.autograd.Function``): ``gnn_loss`` trains.
+A graph whose plan ``core.exec.PlanExecutor.prepare_graph`` placed (a
+``ShardedPlan``) aggregates over its device grid the same way; the
+layers do not know the difference.
 The combinations (``h @ W``) are plain ``torch.matmul``.  The port runs
 eagerly: there is no counterpart of ``gnn_forward_jit``.
 
@@ -42,7 +45,7 @@ class Graph:
     GAT's attention reads (batched composites may omit them)."""
 
     n_nodes: int
-    plan: "SCVPlan | SCVBucketedPlan"
+    plan: "SCVPlan | SCVBucketedPlan | ShardedPlan"
     rows: Optional[torch.Tensor] = None  # i32[E] (normalized adjacency entries)
     cols: Optional[torch.Tensor] = None
     vals: Optional[torch.Tensor] = None  # f32[E]
@@ -113,7 +116,8 @@ def build_graph(
 
 
 def _agg(g: Graph, z: torch.Tensor, edge_vals=None) -> torch.Tensor:
-    """Aggregate with optional per-edge re-weighting (GAT)."""
+    """Aggregate with optional per-edge re-weighting (GAT; a placed plan
+    re-weights each span through its own perm)."""
     plan = g.plan
     if edge_vals is not None:
         plan = plan.reweighted(edge_vals)

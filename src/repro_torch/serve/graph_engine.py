@@ -25,11 +25,18 @@ capacity segment.
   assembled from the patched member and copied to the device.
 * **Debug validation** — ``GraphEngineConfig.debug_validate`` runs
   ``core.validate.validate_plan`` on every composite the engine builds.
+* **Multi-device routing** — a composite over ``shard_nodes_threshold``
+  nodes or ``shard_nnz_threshold`` entries is placed by a
+  ``core.exec.PlanExecutor`` (tile spans x feature slabs over its pool)
+  and cached placed: the decision is part of the composite key, so a hot
+  oversized batch reuses its placement.  A composite that holds an
+  updated member has a new key, so it is assembled and placed again,
+  never patched while placed.
 
 The engine runs on ``device`` (default ``"cuda"``; it raises when no GPU
-is present, and the tests pass ``device="cpu"``).  Multi-device routing
-and autotuned layouts come with later slices of the port;
-:class:`GraphEngineConfig` refuses them.
+is present, and the tests pass ``device="cpu"``); a placed composite's
+output device is the engine's.  Autotuned layouts come with a later
+slice of the port; :class:`GraphEngineConfig` refuses them.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.exec import PlanExecutor, ShardedPlan, pool_device
 from repro_torch.core.formats import COOMatrix
 from repro_torch.core.scv import (
     DEFAULT_CAP,
@@ -132,8 +140,6 @@ class GraphRequest:
 #: brings each (ROADMAP.md, "Modules to port").
 _LATER_SLICES = {
     "autotune": "the simulator/tuner slice (tune/autotuner.py)",
-    "shard_nodes_threshold": "the sharding slice (core/exec.py)",
-    "shard_nnz_threshold": "the sharding slice (core/exec.py)",
 }
 
 
@@ -166,10 +172,14 @@ class GraphEngineConfig:
     # run validate_plan on every composite the engine builds (a host pass
     # over the composite's leaves: for bisecting plan corruption)
     debug_validate: bool = False
-    # --- options of the reference that later slices of the port bring ---
-    autotune: bool = False
+    # multi-device routing (core.exec.PlanExecutor): a composite whose
+    # padded node count exceeds shard_nodes_threshold or whose total nnz
+    # exceeds shard_nnz_threshold runs placed on the executor's pool; None
+    # disables a trigger, and both None keep every wave on one device
     shard_nodes_threshold: Optional[int] = None
     shard_nnz_threshold: Optional[int] = None
+    # --- options of the reference that later slices of the port bring ---
+    autotune: bool = False
 
     def __post_init__(self):
         for field, slice_name in _LATER_SLICES.items():
@@ -187,6 +197,10 @@ class GraphEngineConfig:
                 raise ValueError(
                     f"bucket_caps must be ascending distinct positives, got {caps}"
                 )
+        for field in ("shard_nodes_threshold", "shard_nnz_threshold"):
+            v = getattr(self, field)
+            if v is not None and v <= 0:
+                raise ValueError(f"{field} must be positive (or None)")
         if self.completed_history < 0:
             raise ValueError("completed_history must be >= 0")
         if self.anchor_every < 0:
@@ -401,9 +415,15 @@ def assemble_batched_graph(
 def plan_launches(plan) -> int:
     """Kernel launches one aggregation over ``plan`` costs: one per
     non-empty capacity segment (empty segments are skipped at dispatch —
-    ``kernels/scv_spmm/ops.scv_spmm_plan``).  Read from leaf shapes, so it
-    never touches device memory.  The forward multiplies by
-    ``GNNConfig.n_layers``."""
+    ``kernels/scv_spmm/ops.scv_spmm_plan``).  A placed plan launches, on
+    each of its ``feature_parts`` grid columns, one per span segment that
+    holds an entry (``core.exec.aggregate_sharded`` skips the others; the
+    reference counts every segment on every device).  Read from leaf
+    shapes and the host run indexes, so it never touches device memory.
+    The forward multiplies by ``GNNConfig.n_layers``."""
+    if isinstance(plan, ShardedPlan):
+        live = sum(1 for spans in plan.segments for s in spans if s.runs.max_nnz > 0)
+        return live * plan.decision.feature_parts
     segments = getattr(plan, "segments", (plan,))
     return sum(1 for s in segments if s.n_tiles > 0)
 
@@ -428,7 +448,9 @@ class GraphServeEngine:
     ``models`` maps a model name to ``(params, GNNConfig)``; the engine
     keeps its own copy of each param tree on its device.  Requests pick a
     model by name and are batched per model (mixed kinds cannot share a
-    forward).
+    forward).  ``executor`` places the composites over a shard threshold;
+    when a threshold is set and none is given, a ``PlanExecutor`` over
+    every CUDA card.  Its pool's first device must be the engine's.
     """
 
     def __init__(
@@ -436,6 +458,7 @@ class GraphServeEngine:
         models: dict[str, tuple],
         cfg: Optional[GraphEngineConfig] = None,
         device="cuda",
+        executor: Optional[PlanExecutor] = None,
     ):
         self.device = resolve_device(device)
         self.models = {
@@ -444,6 +467,16 @@ class GraphServeEngine:
             for name, (params, mcfg) in models.items()
         }
         self.cfg = cfg = cfg if cfg is not None else GraphEngineConfig()
+        if executor is None and (
+            cfg.shard_nodes_threshold is not None or cfg.shard_nnz_threshold is not None
+        ):
+            executor = PlanExecutor()
+        if executor is not None and executor.devices[0] != pool_device(self.device):
+            raise ValueError(
+                f"the executor's output device {executor.devices[0]} is not the "
+                f"engine's {self.device}"
+            )
+        self.executor = executor
         self.plan_cache = PlanCache(
             max_entries=cfg.cache_entries,
             max_bytes=cfg.cache_bytes,
@@ -458,13 +491,15 @@ class GraphServeEngine:
         self.n_rejected = 0  # AdmissionRejected at submit
         self.last_completed: list[GraphRequest] = []  # from the latest run()
         self.n_batches = 0  # composite waves served
+        self.n_sharded_batches = 0  # of those, waves placed by the executor
         self.n_launches = 0  # SCV kernel launches (see plan_launches)
         self.serve_seconds = 0.0
         # delta-tracked graphs (see update()): graph_id -> current state
         self._graphs: dict[str, _TrackedGraph] = {}
         self.n_graph_updates = 0
         # host seconds: applying updates, assembling composites on the host
-        # (member builds included), copying them to the device
+        # (member builds included), copying them to the device (and placing
+        # those over a shard threshold)
         self.update_seconds = 0.0
         self.assemble_seconds = 0.0
         self.copy_seconds = 0.0
@@ -608,12 +643,37 @@ class GraphServeEngine:
         return self._tracked(graph_id).adj
 
     # -- plans -------------------------------------------------------------
+    def _shard_decision(self, adjs, bucket: int, mcfg):
+        """Placement decision for a composite, or None for one device: a
+        composite goes to the executor when its padded node count or total
+        nnz exceeds a threshold.  A function of the workload numbers and
+        the pool only, so equal batches reach the same placement and the
+        decision can key the composite cache."""
+        if self.executor is None:
+            return None
+        nnz = sum(a.nnz for a in adjs)
+        over = (
+            self.cfg.shard_nodes_threshold is not None
+            and bucket > self.cfg.shard_nodes_threshold
+        ) or (
+            self.cfg.shard_nnz_threshold is not None
+            and nnz > self.cfg.shard_nnz_threshold
+        )
+        if not over:
+            return None
+        # the narrowest width any layer aggregates bounds useful Z-sharding
+        n_feat = min(mcfg.d_in, mcfg.d_hidden, mcfg.n_classes)
+        decision = self.executor.decide_for(nnz, n_feat, n_rows=bucket)
+        return None if decision.kind == "replicated" else decision
+
     def _batch_plan(self, batch: list[GraphRequest]) -> BatchedGraph:
         """Composite plan for a batch, keyed by member keys so a hot batch
         resolves before any member plan is touched.  Member plans are
         built and cached on the host; the composite is assembled there and
-        copied to the engine's device once.  The salt carries the
-        model-kind component (edges for GAT only).
+        copied to the engine's device once, then placed by the executor
+        when over a shard threshold.  The salt carries the model-kind
+        component (edges for GAT only) and the sharding decision
+        (``shard=``), so a placed composite is cached placed.
 
         A tracked member is keyed by its delta-chained key, resolved here
         at wave time with its current adjacency, so a wave after an update
@@ -631,10 +691,12 @@ class GraphServeEngine:
         ]
         aligned = sum(-(-a.shape[0] // T) * T for a in adjs)
         bucket = _bucket_nodes(aligned, self.cfg.node_buckets, T)
+        decision = self._shard_decision(adjs, bucket, mcfg)
         ckey = combine_keys(
             member_keys,
             salt=f"batch;bucket={bucket};tile={T};caps={cap_sig};"
-            f"edges={int(with_edges)};",
+            f"edges={int(with_edges)};"
+            f"shard={decision.signature if decision else 'none'};",
         )
 
         def build() -> BatchedGraph:
@@ -650,6 +712,11 @@ class GraphServeEngine:
                 validate_plan(bg).raise_if_failed()  # on the host copy
             t1 = time.perf_counter()
             bg = bg.to(self.device)
+            if decision is not None:
+                bg = dataclasses.replace(bg, graph=self.executor.prepare_graph(
+                    bg.graph, decision=decision))
+                if self.cfg.debug_validate:
+                    validate_plan(bg).raise_if_failed()  # the placement
             self.assemble_seconds += t1 - t0
             self.copy_seconds += time.perf_counter() - t1
             return bg
@@ -684,6 +751,8 @@ class GraphServeEngine:
         point), complete its requests, and account the wave."""
         outs = split_outputs(bg, out)
         self.n_batches += 1
+        if isinstance(bg.graph.plan, ShardedPlan):
+            self.n_sharded_batches += 1
         _, mcfg = self.models[wave[0].model]
         # every model kind aggregates once per layer
         self.n_launches += plan_launches(bg.graph.plan) * mcfg.n_layers
@@ -753,6 +822,7 @@ class GraphServeEngine:
         return {
             "device": str(self.device),
             "batches": self.n_batches,
+            "sharded_batches": self.n_sharded_batches,
             # SCV kernel launches: one per non-empty capacity segment per
             # layer — see plan_launches()
             "launches": self.n_launches,

@@ -44,6 +44,9 @@ Requirements on the input (``ValueError`` otherwise): plans carry the
 ``build_graph(bucket_caps=...)`` path); zero-nnz tiles form a trailing
 coverage tail (true of every built plan; serving composites interleave
 padding tiles and are not patchable — patch the members and reassemble).
+A placed plan (``core.exec.ShardedPlan``, or a ``Graph`` holding one) is
+refused with a ``TypeError``: patch the plan before placement and place
+the patched plan again.
 """
 from __future__ import annotations
 
@@ -960,7 +963,10 @@ def _apply_graph(g, delta: DeltaBatch):
     elif isinstance(g.plan, SCVPlan):
         plan2, idp = _apply_plan(g.plan, delta, source=source)
     else:
-        raise TypeError(f"cannot patch a Graph holding {type(g.plan).__name__}")
+        raise TypeError(
+            f"cannot patch a Graph holding {type(g.plan).__name__}; patch "
+            "before device placement (re-shard the patched plan instead)"
+        )
     edges = {}
     if g.rows is not None:
         for name, ins in (("rows", delta.ins_rows), ("cols", delta.ins_cols),

@@ -2,8 +2,9 @@
 the vector body (sparse branch, accumulate mode, dense-tile branch; runs
 split into many work units, summed in a fixed order by the run's last
 block), the scalar body, the shared-memory opt-in at T = 128, a refused
-launch, repeat launches giving the same bits, and gradients through a
-CUDA forward.
+launch, repeat launches giving the same bits, gradients through a CUDA
+forward, and plans placed on four slots of the card by the sharding
+executor.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -381,3 +382,40 @@ def test_patched_tile_takes_the_dense_branch(dev):
     torch.cuda.synchronize()
     assert kmod.dense_launches == 1
     assert torch.equal(got, ref.scv_spmm_reference_plan(_perm_ints(rebuilt.plan), z))
+
+
+@pytest.mark.parametrize("decision", [("tiles", 4, 1), ("features", 1, 2), ("2d", 2, 2)])
+def test_sharded_on_one_card_bit_exact_on_integers(dev, decision):
+    """A plan placed on four slots of one card: every span's chain runs the
+    kernel, and the merged output equals the unsharded chain bit for bit."""
+    from repro_torch.core.aggregate import aggregate_scv_plan
+    from repro_torch.core.exec import PlanExecutor, ShardingDecision
+
+    adj = gcn_normalize(powerlaw_graph(3000, 12000, seed=7))
+    plan = _perm_ints(build_graph(adj, bucket_caps=(8, 32, 128), device=dev).plan)
+    sp = PlanExecutor(devices=(dev,) * 4).prepare(plan, decision=ShardingDecision(*decision))
+    z = torch.randint(-4, 5, (3000, 40), generator=torch.Generator().manual_seed(4)).float().to(dev)
+    kmod.reset_counts()
+    got = aggregate_scv_plan(sp, z)
+    torch.cuda.synchronize()
+    assert kmod.launches == plan_launches(sp) > 0
+    assert torch.equal(got, scv_spmm_plan(plan, z)[:3000])
+
+
+def test_sharded_forward_on_card_carries_gradients(dev):
+    from repro_torch.core.exec import PlanExecutor, ShardingDecision
+
+    adj = gcn_normalize(powerlaw_graph(2000, 8000, seed=8))
+    g = build_graph(adj, bucket_caps=(8, 32, 128), device=dev)
+    placed = PlanExecutor(devices=(dev,) * 4).prepare_graph(
+        g, decision=ShardingDecision("tiles", 4, 1))
+    cfg = GNNConfig(name="gcn", kind="gcn", d_in=16, d_hidden=32, n_classes=4)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    flat = [p.requires_grad_(True) for ps in params.values() for p in ps.values()]
+    x = torch.randn((2000, 16), generator=torch.Generator().manual_seed(1)).to(dev)
+    labels = torch.randint(0, 4, (2000,), generator=torch.Generator().manual_seed(2)).to(dev)
+    mask = torch.ones(2000, device=dev)
+    got = torch.autograd.grad(gnn_loss(params, cfg, placed, x, labels, mask), flat)
+    want = torch.autograd.grad(gnn_loss(params, cfg, g, x, labels, mask), flat)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -4,7 +4,11 @@ atol = 1e-5) and the same count of kernel launches — tracked graphs and
 their ``update()`` deltas included, between waves and under the async
 loop — ``debug_validate`` accepts good composites and raises on a corrupt
 member, and the port's engine refuses what later slices of the port
-bring."""
+bring.  Composites over a shard threshold are placed on a pool of CPU
+devices (``core.exec.PlanExecutor``) and served like the reference's
+single-device engine serves them (its own sharded path fails under the
+installed jax, ROADMAP §3), with the kernel wrapper called exactly as
+often as the engine counts."""
 import dataclasses
 
 import jax
@@ -16,6 +20,8 @@ from repro import stream as jstream
 from repro.core.formats import COOMatrix as JCOO
 from repro.models import gnn as jgnn
 from repro.serve import graph_engine as jeng
+from repro_torch.core.exec import PlanExecutor
+from repro_torch.kernels.scv_spmm import ops as tops
 from repro_torch.launch import graph_serve as tlaunch
 from repro_torch.models import gnn as tgnn
 from repro_torch.serve import graph_engine as teng
@@ -31,7 +37,9 @@ def _pool(sizes=(90, 200, 140, 310, 60)):
     return [gcn_normalize(powerlaw_graph(n, 3 * n, seed=i)) for i, n in enumerate(sizes)]
 
 
-def _engines(kind, d_in=8, **cfg):
+def _engines(kind, d_in=8, executor=None, port_cfg=None, **cfg):
+    """A reference and a port engine on ``cfg``; the port's also gets
+    ``port_cfg`` and ``executor``."""
     jcfg = jgnn.GNNConfig(name=kind, kind=kind, d_in=d_in, d_hidden=16, n_classes=4,
                           backend="jnp")
     tcfg = tgnn.GNNConfig(name=kind, kind=kind, d_in=d_in, d_hidden=16, n_classes=4)
@@ -39,8 +47,9 @@ def _engines(kind, d_in=8, **cfg):
     tparams = tgnn.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     kw = {**ENGINE_KW, **cfg}
     je = jeng.GraphServeEngine({kind: (jparams, jcfg)}, jeng.GraphEngineConfig(**kw))
-    te = teng.GraphServeEngine({kind: (tparams, tcfg)}, teng.GraphEngineConfig(**kw),
-                               device="cpu")
+    te = teng.GraphServeEngine({kind: (tparams, tcfg)},
+                               teng.GraphEngineConfig(**kw, **(port_cfg or {})),
+                               device="cpu", executor=executor)
     return je, te
 
 
@@ -123,8 +132,9 @@ def test_submit_validates_requests():
 
 @pytest.mark.parametrize("field,value,slice_name", [
     ("autotune", True, "tuner"),
-    ("shard_nodes_threshold", 1024, "sharding"),
-    ("shard_nnz_threshold", 10, "sharding"),
+    # the sharding slice has come: only thresholds that are not positive
+    ("shard_nodes_threshold", 0, "positive"),
+    ("shard_nnz_threshold", -10, "positive"),
 ])
 def test_config_refuses_later_slices(field, value, slice_name):
     with pytest.raises(ValueError, match=slice_name):
@@ -461,3 +471,107 @@ def test_anchor_rehomes_live_entries_only():
     assert c.stats.anchored == 1 and c.stats.bytes_in_use == 8 and c.stats.hits == hits
     assert c.anchor("gone", "other") == "other" and c.stats.anchored == 1
     assert c.anchor("content", "content") == "content" and c.stats.anchored == 1
+
+
+# ---------------------------------------------------------------------------
+# multi-device routing: composites over a threshold placed on a CPU pool
+# ---------------------------------------------------------------------------
+CPU4 = (torch.device("cpu"),) * 4
+
+
+def _pool_executor():
+    # floors low enough that the test's small composites split on 4 devices
+    return PlanExecutor(devices=CPU4, min_nnz_per_part=64, min_features_per_part=2)
+
+
+def _count_launches(monkeypatch):
+    calls = []
+    real = tops.scv_spmm_runs
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tops, "scv_spmm_runs", counted)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["gcn", "gat"])
+def test_engine_routes_over_cpu_pool_like_reference_engine(kind, monkeypatch):
+    pool = _pool()
+    je, te = _engines(kind, executor=_pool_executor(),
+                      port_cfg=dict(shard_nnz_threshold=100, debug_validate=True))
+    calls = _count_launches(monkeypatch)
+    rng = np.random.default_rng(5)
+    stream = []
+    for rid in range(14):
+        a = pool[int(rng.integers(len(pool)))]
+        stream.append((a, rng.standard_normal((a.shape[0], 8)).astype(np.float32)))
+        _submit_both(je, te, rid, stream[-1][1], adj=a, model=kind)
+    _run_both(je, te)
+    tm = te.metrics()
+    assert tm["sharded_batches"] == tm["batches"] == je.metrics()["batches"] > 0
+    assert len(calls) == tm["launches"] > 0
+    # the same requests again: every wave is a composite hit, placed already
+    hits, misses = tm["plan_cache_hits"], tm["plan_cache_misses"]
+    for rid, (a, x) in enumerate(stream):
+        _submit_both(je, te, 100 + rid, x, adj=a, model=kind)
+    _run_both(je, te)
+    tm = te.metrics()
+    assert tm["plan_cache_misses"] == misses
+    assert tm["plan_cache_hits"] - hits == tm["batches"] // 2
+    assert len(calls) == tm["launches"]
+
+
+def test_threshold_routes_only_oversized_composites():
+    _, te = _engines("gcn", executor=_pool_executor(), port_cfg=dict(shard_nodes_threshold=512))
+    for rid, a in enumerate(_pool((60, 700, 300))):
+        te.submit(teng.GraphRequest(rid=rid, adj=a, x=np.ones((a.shape[0], 8), np.float32),
+                                    model="gcn"))
+        te.run()  # one graph a wave: only the 700-node one pads past 512 (to 1024)
+    assert te.metrics()["sharded_batches"] == 1 and te.metrics()["batches"] == 3
+
+
+def test_tracked_member_is_placed_again_after_update(monkeypatch):
+    """An update re-keys the member, so the next wave's composite is a miss:
+    assembled from the patched member and placed again, never patched."""
+    pool = _pool()
+    je, te = _engines("gcn", executor=_pool_executor(),
+                      port_cfg=dict(shard_nnz_threshold=100, debug_validate=True))
+    calls = _count_launches(monkeypatch)
+    rng = np.random.default_rng(8)
+    xs = [rng.standard_normal((a.shape[0], 8)).astype(np.float32) for a in pool[:2]]
+    _submit_both(je, te, 0, xs[0], adj=pool[0], graph_id="a")
+    _submit_both(je, te, 1, xs[1], adj=pool[1])
+    _run_both(je, te)
+    for step in range(3):
+        d = _mixed_delta(rng, te.tracked_adj("a"), 3, 2, 3)
+        assert te.update("a", d) == je.update("a", _jdelta(d))
+        misses = te.metrics()["plan_cache_misses"]
+        _submit_both(je, te, 2 + 2 * step, xs[0], graph_id="a")
+        _submit_both(je, te, 3 + 2 * step, xs[1], adj=pool[1])
+        _run_both(je, te)
+        assert te.metrics()["plan_cache_misses"] == misses + 1  # the composite only
+    tm = te.metrics()
+    assert tm["sharded_batches"] == tm["batches"] == 4
+    assert tm["graph_updates"] == tm["plan_cache_revalidated"] == 3
+    assert len(calls) == tm["launches"]
+
+
+def test_sharding_needs_a_pool_beginning_at_the_engine_device():
+    cfg = tgnn.GNNConfig(name="gcn", kind="gcn", d_in=8, d_hidden=8, n_classes=2)
+    params = tgnn.init_gnn(torch.Generator().manual_seed(0), cfg, device="cpu")
+    sharded = teng.GraphEngineConfig(shard_nnz_threshold=10)
+    if not torch.cuda.is_available():  # the default pool is every CUDA card
+        with pytest.raises(RuntimeError, match="none is available"):
+            teng.GraphServeEngine({"gcn": (params, cfg)}, sharded, device="cpu")
+    with pytest.raises(ValueError, match="output device"):
+        teng.GraphServeEngine({"gcn": (params, cfg)}, sharded, device="cpu",
+                              executor=PlanExecutor(devices=(torch.device("meta"),)))
+    # an executor without a threshold keeps every wave on one device
+    te = teng.GraphServeEngine({"gcn": (params, cfg)}, teng.GraphEngineConfig(), device="cpu",
+                               executor=PlanExecutor(devices=CPU4))
+    a = _pool((60,))[0]
+    te.submit(teng.GraphRequest(rid=0, adj=a, x=np.ones((60, 8), np.float32), model="gcn"))
+    te.run()
+    assert te.metrics()["sharded_batches"] == 0 and te.metrics()["batches"] == 1

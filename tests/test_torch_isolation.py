@@ -44,7 +44,9 @@ def test_port_has_modules():
             "repro_torch.kernels.scv_spmm.ref", "repro_torch.kernels.scv_spmm.build",
             "repro_torch.models.gnn", "repro_torch.simul.datasets",
             "repro_torch.serve.graph_engine", "repro_torch.launch.graph_serve",
-            "repro_torch.stream.delta", "repro_torch.core.validate"} <= names
+            "repro_torch.stream.delta", "repro_torch.core.validate",
+            "repro_torch.core.exec", "repro_torch.core.partition", "repro_torch.core.dist",
+            "repro_torch.simul.machine", "repro_torch.tune.cost"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],

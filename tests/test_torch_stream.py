@@ -14,6 +14,8 @@ reference's ``repro.stream`` and against its own rebuilds.
   GAT as the reference does.
 * No rebuild inside the delta package: an AST walk of
   ``src/repro_torch/stream/`` and a run with the builders made to raise.
+* A placed plan (``core.exec.ShardedPlan``) is refused as the reference
+  refuses it; patching before placement places like the rebuild.
 """
 import ast
 import dataclasses
@@ -442,6 +444,39 @@ def test_composite_is_not_patchable():
     bg = assemble_batched_graph(gs, TILE, 128, device="cpu")
     with pytest.raises(ValueError, match="not patchable"):
         apply_delta(bg.graph.plan, DeltaBatch.of(removes=[(int(gs[0].rows[0]), int(gs[0].cols[0]))]))
+
+
+def test_placed_plans_are_not_patchable(rng):
+    """As in the reference, a placed plan and a Graph holding one are
+    refused: the plan is patched before placement and placed again, which
+    gives the placement of the rebuild."""
+    from repro.core import dist as jdist
+    from repro_torch.core.exec import PlanExecutor, ShardingDecision
+
+    coo = _random_coo(rng, 96, 0.05)
+    g = build_graph(coo, tile=TILE, bucket_caps=CAPS, device="cpu")
+    ex = PlanExecutor(devices=(torch.device("cpu"),) * 2)
+    decision = ShardingDecision("tiles", 2, 1)
+    placed = ex.prepare_graph(g, decision=decision)
+    edge = (int(coo.rows[0]), int(coo.cols[0]))
+    d = DeltaBatch.of(removes=[edge])
+    with pytest.raises(TypeError, match="cannot patch ShardedPlan"):
+        apply_delta(placed.plan, d)
+    with pytest.raises(TypeError, match="re-shard the patched plan"):
+        apply_delta(placed, d)
+    jg = jgnn.build_graph(_jcoo(coo), tile=TILE, bucket_caps=CAPS)
+    jd = jstream.DeltaBatch.of(removes=[edge])
+    jsp = jdist.distribute_plan(jg.plan, 1)
+    with pytest.raises(TypeError, match="cannot patch ShardedPlan"):
+        jstream.apply_delta(jsp, jd)
+    with pytest.raises(TypeError, match="re-shard the patched plan"):
+        jstream.apply_delta(dataclasses.replace(jg, plan=jsp), jd)
+    patched = ex.prepare_graph(apply_delta(g, d), decision=decision)
+    rebuilt = ex.prepare_graph(build_graph(apply_coo(coo, d), tile=TILE, bucket_caps=CAPS,
+                                           device="cpu"), decision=decision)
+    for a, b in zip(patched.plan.stacked(), rebuilt.plan.stacked()):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_unknown_object_raises():

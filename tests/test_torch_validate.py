@@ -2,19 +2,24 @@
 corrupted plans (the corruptions of ``tests/test_validate.py``) go through
 ``repro.core.validate.validate_plan`` and the port's, and give the same
 verdict per invariant with the same offending tile / segment indices, for
-tiles, single-cap plans, bucketed plans, graphs and serving composites.
+tiles, single-cap plans, bucketed plans, graphs and serving composites,
+and (with the span named too) for plans placed on a pool of CPU devices,
+held against the reference's sharded checks on the same span leaves.
 The port's own ``run-index`` invariant is held on its own: green on every
 built plan, red on a plan whose run index predates a splice of its arrays.
 """
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import exec as jexec
 from repro.core import scv as jscv
 from repro.core import validate as jval
 from repro.core.formats import COOMatrix as JCOO
+from repro_torch.core import exec as texec
 from repro_torch.core import scv as tscv
 from repro_torch.core import validate as tval
 from repro_torch.models import gnn as tgnn
@@ -311,5 +316,100 @@ def test_run_index_diff_names_fields():
 
 
 def test_sharded_plans_wait_for_the_sharding_slice():
-    with pytest.raises(TypeError, match="sharding slice"):
+    """The sharding slice has come: an unknown object is refused with a
+    message that names ``ShardedPlan`` among the kinds accepted."""
+    with pytest.raises(TypeError, match="ShardedPlan / Graph"):
         tval.validate_plan(object())
+
+
+# ---------------------------------------------------------------------------
+# placed plans: the reference's sharded chain on the same leaves
+# ---------------------------------------------------------------------------
+CPU4 = (torch.device("cpu"),) * 4
+SPAN_CORRUPTIONS = ["order", "coverage", "coverage-contiguity", "cap", "packing", "perm",
+                    "bounds", "reassembly"]
+
+
+def _placed(coo, decision=("tiles", 4, 1)):
+    _, tp = _plans(coo, True)
+    return texec.PlanExecutor(devices=CPU4).prepare(tp, decision=texec.ShardingDecision(*decision))
+
+
+def _as_reference(sp, stacked):
+    """The reference's ``ShardedPlan`` over ``stacked`` host leaves: its
+    checks read the leaves and the decision, not the mesh."""
+    segs = tuple(
+        jscv.SCVPlan(**{k: None if v is None else jnp.asarray(v) for k, v in seg.items()},
+                     tile=sp.tile, cap=cap, shape=sp.shape, order=sp.order)
+        for seg, cap in zip(stacked, sp.caps))
+    return jexec.ShardedPlan(segments=segs, mesh=None,
+                             decision=jexec.ShardingDecision(*dataclasses.astuple(sp.decision)))
+
+
+def _with_stacked(sp, stacked):
+    """``sp`` holding ``stacked`` leaves; each span keeps its run index."""
+    return dataclasses.replace(sp, segments=tuple(
+        tuple(dataclasses.replace(s, **{k: None if v is None else torch.from_numpy(v[p].copy())
+                                        for k, v in seg.items()})
+              for p, s in enumerate(spans))
+        for spans, seg in zip(sp.segments, stacked)))
+
+
+def _sharded_verdicts(report, invariants=None):
+    return [(c.invariant, c.segment, c.part, c.ok, c.offending) for c in report.checks
+            if invariants is None or c.invariant in invariants]
+
+
+def assert_same_sharded_verdicts(jrep, trep):
+    ref_inv = {c.invariant for c in jrep.checks}
+    assert _sharded_verdicts(trep, ref_inv) == _sharded_verdicts(jrep)
+    assert {c.invariant for c in trep.checks} - ref_inv <= {"run-index"}
+    assert trep.kind == jrep.kind == "sharded"
+
+
+@pytest.mark.parametrize("decision", [("tiles", 4, 1), ("2d", 2, 2), ("features", 1, 4)])
+def test_clean_placement_matches_reference(decision):
+    coo = _coo()
+    sp = _placed(coo, decision)
+    trep = tval.validate_plan(sp, coo=coo)
+    jrep = jval.validate_plan(_as_reference(sp, sp.stacked()), coo=_jcoo(coo))
+    assert trep.ok and jrep.ok, trep.summary()
+    assert_same_sharded_verdicts(jrep, trep)
+    n_spans = sum(len(spans) for spans in sp.segments)
+    assert sum(c.invariant == "run-index" for c in trep.checks) == n_spans
+
+
+@pytest.mark.parametrize("invariant", SPAN_CORRUPTIONS)
+def test_corrupted_span_matches_reference(invariant):
+    """A corruption of one span's leaves gets the reference's verdicts,
+    named by segment and span."""
+    coo = _coo()
+    sp = _placed(coo)
+    stacked = list(sp.stacked())
+    j = max(range(len(stacked)), key=lambda i: int((stacked[i]["nnz_in_tile"][0] > 0).sum()))
+    leaves = {k: v[0].copy() for k, v in stacked[j].items()}  # span 0: it starts at row 0
+    CORRUPTIONS[invariant](leaves)
+    stacked[j] = {k: v.copy() for k, v in stacked[j].items()}
+    for k, v in leaves.items():
+        stacked[j][k][0] = v
+    kw = dict(coo=coo) if invariant == "reassembly" else {}
+    trep = tval.validate_plan(_with_stacked(sp, stacked), **kw)
+    jrep = jval.validate_plan(_as_reference(sp, stacked),
+                              **({"coo": _jcoo(coo)} if kw else {}))
+    assert not trep.ok, trep.summary()
+    assert_same_sharded_verdicts(jrep, trep)
+
+
+def test_placed_graph_and_composite_kinds():
+    adjs = [_coo(n, 4 * n, seed=i) for i, n in enumerate((70, 130))]
+    tg = [tgnn.build_graph(a, tile=16, bucket_caps=CAPS, device="cpu") for a in adjs]
+    ex = texec.PlanExecutor(devices=CPU4)
+    placed = ex.prepare_graph(tg[1], decision=texec.ShardingDecision("2d", 2, 2))
+    trep = tval.validate_plan(placed, coo=adjs[1])
+    assert trep.kind == "graph" and trep.ok, trep.summary()
+    assert {c.invariant for c in trep.checks} >= {"shard-coverage", "run-index", "reassembly"}
+    bg = teng.assemble_batched_graph(tg, 16, 256, device="cpu")
+    bg = dataclasses.replace(bg, graph=ex.prepare_graph(
+        bg.graph, decision=texec.ShardingDecision("tiles", 4, 1)))
+    trep = tval.validate_plan(bg)
+    assert trep.kind == "batched-graph" and trep.ok, trep.summary()
