@@ -35,14 +35,18 @@ Phases, each of which fails the run on error:
    (``powerlaw_edges``, 2,048 nodes, 1,000,000 edges) and a mixed one
    (8,192 nodes, 4,000,000 edges), GCN-normalised and planned with
    ``bucket_caps="auto"`` at T = 64 (and the first at T = 128), plus the
-   single-cap plans the kernel benchmark runs the scalar body on.  Hold
-   the vector body (dense-tile branch included) and the scalar body
-   against their plain versions on them, as in phase 2.
+   single-cap plans the kernel benchmark runs the scalar body on (each
+   with its runs, work units, units in split runs and heaviest unit).
+   Hold the vector body (dense-tile branch included) and the scalar body
+   against their plain versions on them, as in phase 2, and require two
+   scalar-body launches on the same inputs to give the same bits.
 7. Time those chains: kernel, plain version, ``torch.sparse.mm``, the
    bound, and the same chain with the dense branch off
-   (``dense_threshold=cap``); per segment, dense against gather; and the
-   T = 64 chains over a sweep of ``dense_threshold`` (measured only; the
-   default does not change).
+   (``dense_threshold=cap``); per segment, dense against gather; the T =
+   64 chains over a sweep of ``dense_threshold`` (measured only; the
+   default does not change); and the scalar body beside the vector body
+   on its plans, also under the thread rule it does not keep (the widest
+   block within 48 KB; measured only, and the same bits).
 8. The gcn-paper forward and 20 SGD steps of training on the 8,192-node
    graph, through the kernels and the autograd Function: step 0's
    gradients are held against plain autograd through the plain version
@@ -84,7 +88,9 @@ Phases, each of which fails the run on error:
     burst from the hot-graph pool through an engine with the executor,
     waves over 4,096 entries placed: outputs within 1e-4 of a plain
     forward, launches equal to the engine's, and the burst repeated from
-    placed composites in the cache.
+    placed composites in the cache.  Last, the plan placed ``features``
+    1x8 on eight slots at F = 3 (five slabs empty, launching nothing),
+    bit-exact with the unsharded chain on integers.
 
 Each of phases 4, 5, 8, 9, 10, 11 and 12 sets the kernels' launch counts
 to 0 just before it drives its path and reads them just after.  The line before the last is a JSON
@@ -133,6 +139,7 @@ SHARD_SLOTS = 4  # devices in phase 12's executor pool
 SHARD_DECISIONS = (("tiles", 4, 1), ("features", 1, 2), ("2d", 2, 2))  # and what decide picks
 SHARD_NNZ_THRESHOLD = 4096  # phase 12's serving: a wave holding more entries is placed
 SHARD_REQUESTS = 64
+NARROW_FEATURES, NARROW_PARTS = 3, 8  # phase 12: feature slabs narrower than a column
 
 
 def check(cond: bool, msg: str) -> None:
@@ -207,6 +214,21 @@ def chain_bounds(plan, entries, n_feat: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2 * cols.size * n_feat / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def threads_within_default_smem(kmod):
+    """The thread rule the scalar body was measured against (measured
+    only): the widest width whose block fits the 48 KB it gets without
+    opting in, else the module's rule."""
+    rule = kmod.threads_for
+
+    def within(n_feat, tile, body="vector", dense=False):
+        full = min(kmod.MAX_THREADS, -(-n_feat // 32) * 32)
+        for threads in range(full, 0, -32):
+            if kmod.smem_bytes(tile, threads, body, dense) <= kmod.SMEM_BYTES:
+                return threads
+        return rule(n_feat, tile, body, dense)
+    return within
 
 
 def with_integer_vals(plan, gen, dev):
@@ -842,6 +864,47 @@ def shard_serving(cfg, layout, dev, pool_devices) -> dict:
     return dict(bursts=bursts, worst=worst)
 
 
+def shard_narrow(g, dev, gen) -> dict:
+    """Phase 12, slabs narrower than a column: ``g``'s plan placed
+    ``features`` 1x``NARROW_PARTS`` on that many slots of ``dev``'s card at
+    F = ``NARROW_FEATURES`` (the last slabs empty), held against the
+    unsharded kernel chain (integer values, bit for bit) and the plain
+    version (1e-5); an empty slab launches nothing."""
+    from repro_torch.core.exec import PlanExecutor, ShardingDecision, aggregate_sharded
+    from repro_torch.kernels.scv_spmm import ref
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+    from repro_torch.serve.graph_engine import plan_launches
+
+    plan, f, fp = g.plan, NARROW_FEATURES, NARROW_PARTS
+    n_rows, n_cols = plan.shape
+    d = ShardingDecision("features", 1, fp)
+    sp = PlanExecutor(devices=(dev,) * fp).prepare(plan, decision=d)
+    sp_int = sharded_ints(sp)
+    z_int = torch.randint(-4, 5, (n_cols, f), generator=gen).float().to(dev)
+    want_int = scv_spmm_plan(perm_int_plan(plan), z_int)[:n_rows]
+    sync_all(dev)
+    kmod.reset_counts()
+    got_int = aggregate_sharded(sp_int, z_int)
+    sync_all(dev)
+    n_launch = kmod.launches
+    filled = -(-f // -(-f // fp))  # slabs holding a column
+    check(n_launch == plan_launches(sp) // fp * filled > 0,
+          f"{d.signature} F={f}: {n_launch} kernel launches for {filled} filled slabs")
+    check(tuple(got_int.shape) == (n_rows, f) and torch.equal(got_int, want_int),
+          f"{d.signature} F={f}: not bit-exact with the unsharded chain on integers")
+    z = torch.randn((n_cols, f), generator=gen).to(dev)
+    err, scale = rel_err(aggregate_sharded(sp, z), ref.scv_spmm_reference_plan(plan, z)[:n_rows])
+    check(err <= 1e-5 * scale, f"{d.signature} F={f}: max err {err} > 1e-5 * {scale}")
+    whole_ms = device_ms(lambda: aggregate_sharded(sp, z), 10)
+    chain_ms = device_ms(lambda: scv_spmm_plan(plan, z), 10)
+    print(f"[shard] {d.signature} F={f} on {fp} slots: {filled} slabs of one column, "
+          f"{fp - filled} empty; {n_launch} launches, integer bit-exact with the unsharded chain, "
+          f"max err {err:.2e} (max |plain| {scale:.2e}); whole call {whole_ms:.4f} ms vs "
+          f"unsharded chain {chain_ms:.4f} ms")
+    return dict(launches=n_launch, whole_ms=whole_ms, chain_ms=chain_ms, err=err)
+
+
 def shard_drive(g, cfg, layout, dev, gen) -> dict:
     """Phase 12: the sharding executor on each pool of :func:`shard_pools`:
     placement of ``g``'s plan at F = 128 and 40, the model, serving.
@@ -862,8 +925,9 @@ def shard_drive(g, cfg, layout, dev, gen) -> dict:
         model = shard_model(g, cfg, ex, dev)
         serving = shard_serving(cfg, layout, dev, devices)
         runs.append(dict(pool=name, placements=rows, model=model, serving=serving))
+    narrow = shard_narrow(g, dev, gen)
     print(f"[shard] phase 12: {time.perf_counter() - t0:.1f} s")
-    return dict(runs=runs, launches=sum(
+    return dict(runs=runs, narrow=narrow, launches=narrow["launches"] + sum(
         r["launches"] for run in runs for r in run["placements"]) + sum(
         run["model"]["launches"] + sum(b["launches"] for b in run["serving"]["bursts"])
         for run in runs))
@@ -1177,6 +1241,10 @@ def main() -> int:
         for t, caps in ((64, ref_g.plan.caps), (128, g128.plan.caps))
     }
     torch.cuda.synchronize()
+    for name, plan in scalar_plans.items():
+        ri = plan.runs
+        print(f"[scalar] {name}: {plan.n_tiles} tiles, {ri.n_runs} runs, {ri.n_units} work "
+              f"units ({ri.n_split_units} in split runs), heaviest unit {ri.max_unit_work} work")
 
     err_dense = err_scalar = 0.0
     for body, plans in (("vector", vector_plans), ("scalar", scalar_plans)):
@@ -1200,6 +1268,18 @@ def main() -> int:
                     err_scalar = max(err_scalar, err)
                 print(f"[compare] {body} body {name} F={f}: integer bit-exact, normalised "
                       f"max abs err {err:.3e} (max |plain| {scale:.3e})")
+    # two scalar-body launches on the same real-valued inputs: the same bits
+    # (split runs summed in unit order), every split run's counter back at 0
+    for name, plan in scalar_plans.items():
+        z = torch.randn((plan.shape[1], cfg.d_hidden), generator=gen).to(dev)
+        first_sc = scv_spmm_plan(plan, z, body="scalar")
+        second_sc = scv_spmm_plan(plan, z, body="scalar")
+        torch.cuda.synchronize()
+        check(torch.equal(first_sc, second_sc), f"scalar body {name}: two launches differ")
+        check(not any(bool(c.any()) for c in plan.runs._counters.values()),
+              f"scalar body {name}: a split run's counter was left set")
+        print(f"[determinism] scalar body {name} F={cfg.d_hidden} twice: identical bits "
+              f"({plan.runs.n_split_units} units in split runs), counters back at 0")
     torch.cuda.synchronize()
 
     # -- 7. dense-block timing ------------------------------------------------
@@ -1245,21 +1325,34 @@ def main() -> int:
             print(f"[sweep] dense-block {name} F={cfg.d_hidden} chain by dense_threshold "
                   f"(default {dense_tile_threshold(64)}): " + "; ".join(sweep))
     scalar_rows = {}
+    kept_rule = kmod.threads_for
     for name, plan in scalar_plans.items():
         entries = plan_entries(plan)
         csr = csr_of(entries, (plan.padded_shape[0], plan.shape[1]), dev)
         for f in (cfg.d_hidden, cfg.n_classes):
             z = torch.randn((plan.shape[1], f), generator=gen).to(dev)
-            ms = device_ms(lambda: scv_spmm_plan(plan, z, body="scalar"), 5)
+            ms = device_ms(lambda: scv_spmm_plan(plan, z, body="scalar"), 20)
+            # the thread rule the scalar body does not keep: measured only
+            kmod.threads_for = threads_within_default_smem(kmod)
+            try:
+                other = kmod.threads_for(f, plan.tile, "scalar")
+                other_out = scv_spmm_plan(plan, z, body="scalar")
+                other_ms = device_ms(lambda: scv_spmm_plan(plan, z, body="scalar"), 20)
+            finally:
+                kmod.threads_for = kept_rule
+            check(torch.equal(other_out, scv_spmm_plan(plan, z, body="scalar")),
+                  f"scalar body {name} F={f}: the thread rules give other bits")
             vec_ms = device_ms(lambda: scv_spmm_plan(plan, z), 20)
             plain_ms = device_ms(lambda: ref.scv_spmm_reference_plan(plan, z, body="scalar"), 5)
             lib_ms = device_ms(lambda: torch.sparse.mm(csr, z), 20)
             bound_ms, bound_by = chain_bounds(plan, entries, f)
             scalar_rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                           bound_ms=bound_ms, bound_by=bound_by)
-            print(f"[time] scalar body {name} F={f}: {ms:.4f} ms, vector body on the same "
-                  f"plan {vec_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain "
-                  f"{plain_ms:.4f} ms, torch.sparse.mm (CSR) {lib_ms:.4f} ms")
+            print(f"[time] scalar body {name} F={f}: {ms:.4f} ms "
+                  f"({kept_rule(f, plan.tile, 'scalar')} threads; within 48 KB, {other} "
+                  f"threads: {other_ms:.4f} ms), vector body on the same plan {vec_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+                  f"torch.sparse.mm (CSR) {lib_ms:.4f} ms")
         del csr
     torch.cuda.synchronize()
 

@@ -354,21 +354,21 @@ def aggregate_sharded(sp: ShardedPlan, z: torch.Tensor) -> torch.Tensor:
     one kernel launch per segment of the span that holds an entry, from an
     explicit zero output (``scv_spmm_plan(init="zeros")``), so a span owes
     no coverage and rows it does not visit stay zero.  Slab q is
-    ``z[:, f0:f1]`` with ``f1 - f0 = ceil(F / fp)`` (the last narrower),
-    made contiguous once per device; the kernel masks any width, so Z is
-    not padded.  Each slab's partials are summed on the output device in
-    span order (:func:`merge_partials`) and the slabs concatenated.
+    ``z[:, f0:f1]`` with ``f1 - f0 = ceil(F / fp)`` (the last narrower;
+    where F < fp the last slabs are empty, and an empty slab launches
+    nothing), made contiguous once per device; the kernel masks any width,
+    so Z is not padded.  Each slab's partials are summed on the output
+    device in span order (:func:`merge_partials`) and the slabs
+    concatenated.
     Differentiable in ``z`` and in the spans' values, through each chain's
     autograd Function and the copies and sums."""
     tp, fp = sp.decision.tile_parts, sp.decision.feature_parts
     n_feat = z.shape[1]
-    if n_feat < fp:
-        raise ValueError(f"z has {n_feat} columns, fewer than the {fp} feature slabs")
     width = -(-n_feat // fp)
     n_rows_p = sp.padded_shape[0]
     cols = []
     for q in range(fp):
-        f0, f1 = q * width, min(n_feat, (q + 1) * width)
+        f0, f1 = min(n_feat, q * width), min(n_feat, (q + 1) * width)
         slabs, parts = {}, []
         for p in range(tp):
             plan = sp.span(p, q)

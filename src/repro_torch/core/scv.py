@@ -309,7 +309,7 @@ class RunIndex:
 
     A run is a maximal stretch of consecutive tiles with the same
     ``tile_row``; :meth:`of` refuses a schedule that visits a block-row in
-    two runs.  The CUDA vector body schedules its thread blocks by *work
+    two runs.  Both CUDA bodies schedule their thread blocks by *work
     unit*: a consecutive span of one run's tiles holding at most
     ``UNIT_WORK`` tiles plus entries (a heavier single tile is a unit of its
     own), so a hub block-row's long run is shared by several blocks.  A run
@@ -319,7 +319,11 @@ class RunIndex:
     is deterministic.  A run's trailing zero-nnz tiles (the serving
     composite's tile-count padding) lie in no unit; a run with no entry (a
     coverage dummy) keeps one empty unit, so its strip is still written.
-    The scalar body keeps one block per run (``ptr``).
+    The scalar body (replacing the TPU's ``_kernel_scalar``) is bound on the
+    card by one entry's strip update after another, so it too takes one
+    block per unit, and a hub run's entries are walked by several blocks at
+    once.  No kernel reads ``ptr``: the ``run-index`` check of
+    ``validate_plan`` and host code do.
 
     Everything is computed on the host where plans are built, never by a
     device->host read at launch time: ``max_nnz`` (the heaviest tile's

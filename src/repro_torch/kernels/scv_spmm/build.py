@@ -80,7 +80,7 @@ def load_library() -> KernelLibrary:
             vector, scalar = lib.scv_spmm_runs, lib.scv_spmm_runs_scalar
             # the device pointers, the ints, then the stream
             vector.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-            scalar.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            scalar.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             vector.restype = scalar.restype = ctypes.c_int
             _loaded = KernelLibrary(vector, scalar, target, seconds, log)
         return _loaded

@@ -70,7 +70,6 @@ constexpr int kAhead = 32;     // entries whose Z values a thread requests ahead
 constexpr int kWide = 32;      // partial-strip values the run's last block reads at a time
 constexpr int kHeaders = 256;  // tile headers the vector body stages at a time
 constexpr int kEntries = 256;  // entries the vector body stages at a time
-constexpr int kStage = 256;    // entries the scalar body stages at a time
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -244,6 +243,89 @@ __device__ __forceinline__ void walk(const Entry* entries, int n, float* col, in
   }
 }
 
+// Seeds this thread's strip column: from `out` (accumulate mode, a run of
+// one unit) or zero.  The units of a split run sum from zero; the run's
+// last block adds the seed.  One branch outside the loops: with the choice
+// inside the loop, the vector body ran a few percent slower on the H100.
+__device__ __forceinline__ void seed_strip(float* col, int stride, const float* out_col,
+                                           int n_feat, int tile, bool from_out) {
+  if (from_out) {
+    for (int r = 0; r < tile; ++r) col[r * stride] = out_col[(int64_t)r * n_feat];
+  } else {
+    for (int r = 0; r < tile; ++r) col[r * stride] = 0.0f;
+  }
+}
+
+// Ends a work unit's block, every thread of it.  A run of one unit writes
+// its strip.  A split run: publish this unit's partial strip, then the
+// run's last block to arrive (a per-(run, feature block) counter:
+// __threadfence, then atomicAdd) sums seed and partials in unit order,
+// writes the strip and sets the counter back to 0.  `u` is the unit,
+// `first` and `count` its run's first unit and unit count, `last` a flag
+// in shared memory.
+__device__ __forceinline__ void finish_unit(float* col, int stride, float* out_col,
+                                            float* scratch, int32_t* counters, int* last,
+                                            int4 unit, int u, int first, int count, int tile,
+                                            int n_feat, int f, bool active, int accumulate) {
+  if (count == 1) {
+    if (active) {
+      for (int r = 0; r < tile; ++r) out_col[(int64_t)r * n_feat] = col[r * stride];
+    }
+    return;
+  }
+  if (active) {
+    float* part = scratch + (int64_t)unit.w * tile * n_feat + f;
+    for (int r = 0; r < tile; ++r) part[(int64_t)r * n_feat] = col[r * stride];
+  }
+  __threadfence();
+  __syncthreads();
+  int32_t* counter = counters + (int64_t)unit.z * gridDim.y + blockIdx.y;
+  if (threadIdx.x == 0) *last = atomicAdd(counter, 1) == count - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  if (active) {
+    for (int r = 0; r < tile; ++r) {
+      col[r * stride] = accumulate ? out_col[(int64_t)r * n_feat] : 0.0f;
+    }
+    // The run's units hold consecutive scratch slots, so partial k's row r
+    // is element k * tile + r from the first: walking the elements in order
+    // adds each row's partials in unit order.  kWide reads in flight, the
+    // next kWide requested before the current are added.
+    const float* p = scratch + (int64_t)(unit.w - (u - first)) * tile * n_feat + f;
+    const int n = count * tile;
+    int i = 0, r = 0;
+    if (n >= kWide) {
+      float cur[kWide];
+#pragma unroll
+      for (int w = 0; w < kWide; ++w) cur[w] = __ldcg(p + (int64_t)w * n_feat);
+      for (; i + 2 * kWide <= n; i += kWide) {
+        float nxt[kWide];
+#pragma unroll
+        for (int w = 0; w < kWide; ++w) nxt[w] = __ldcg(p + (int64_t)(i + kWide + w) * n_feat);
+#pragma unroll
+        for (int w = 0; w < kWide; ++w) {
+          col[r * stride] += cur[w];
+          r = r + 1 == tile ? 0 : r + 1;
+          cur[w] = nxt[w];
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < kWide; ++w) {
+        col[r * stride] += cur[w];
+        r = r + 1 == tile ? 0 : r + 1;
+      }
+      i += kWide;
+    }
+    for (; i < n; ++i) {
+      col[r * stride] += __ldcg(p + (int64_t)i * n_feat);
+      r = r + 1 == tile ? 0 : r + 1;
+    }
+    for (r = 0; r < tile; ++r) out_col[(int64_t)r * n_feat] = col[r * stride];
+  }
+  if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
+}
+
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 scv_spmm_runs_kernel(const int32_t* __restrict__ tile_row,
                      const int32_t* __restrict__ tile_col,
@@ -279,11 +361,7 @@ scv_spmm_runs_kernel(const int32_t* __restrict__ tile_row,
   const bool split = count > 1;
   float* out_col = out + (int64_t)tile_row[unit.x] * tile * n_feat + f;
 
-  if (active) {
-    for (int r = 0; r < tile; ++r) {
-      col[r * stride] = accumulate && !split ? out_col[(int64_t)r * n_feat] : 0.0f;
-    }
-  }
+  if (active) seed_strip(col, stride, out_col, n_feat, tile, accumulate && !split);
 
   for (int h0 = unit.x; h0 < unit.y; h0 += kHeaders) {
     const int n_h = min(kHeaders, unit.y - h0);
@@ -349,133 +427,339 @@ scv_spmm_runs_kernel(const int32_t* __restrict__ tile_row,
     }
   }
 
-  if (!split) {
-    if (active) {
-      for (int r = 0; r < tile; ++r) out_col[(int64_t)r * n_feat] = col[r * stride];
-    }
-    return;
-  }
-  // A split run: publish this unit's partial strip, then the run's last
-  // block to arrive sums seed and partials in unit order.
-  if (active) {
-    float* part = scratch + (int64_t)unit.w * tile * n_feat + f;
-    for (int r = 0; r < tile; ++r) part[(int64_t)r * n_feat] = col[r * stride];
-  }
-  __threadfence();
-  __syncthreads();
-  int32_t* counter = counters + (int64_t)unit.z * gridDim.y + blockIdx.y;
-  if (threadIdx.x == 0) h.last = atomicAdd(counter, 1) == count - 1;
-  __syncthreads();
-  if (!h.last) return;
-  __threadfence();
-  if (active) {
-    for (int r = 0; r < tile; ++r) {
-      col[r * stride] = accumulate ? out_col[(int64_t)r * n_feat] : 0.0f;
-    }
-    // The run's units hold consecutive scratch slots, so partial k's row r
-    // is element k * tile + r from the first: walking the elements in order
-    // adds each row's partials in unit order.  kWide reads in flight, the
-    // next kWide requested before the current are added.
-    const float* p = scratch + (int64_t)(unit.w - (u - first)) * tile * n_feat + f;
-    const int n = count * tile;
-    int i = 0, r = 0;
-    if (n >= kWide) {
-      float cur[kWide];
-#pragma unroll
-      for (int w = 0; w < kWide; ++w) cur[w] = __ldcg(p + (int64_t)w * n_feat);
-      for (; i + 2 * kWide <= n; i += kWide) {
-        float nxt[kWide];
-#pragma unroll
-        for (int w = 0; w < kWide; ++w) nxt[w] = __ldcg(p + (int64_t)(i + kWide + w) * n_feat);
-#pragma unroll
-        for (int w = 0; w < kWide; ++w) {
-          col[r * stride] += cur[w];
-          r = r + 1 == tile ? 0 : r + 1;
-          cur[w] = nxt[w];
-        }
-      }
-#pragma unroll
-      for (int w = 0; w < kWide; ++w) {
-        col[r * stride] += cur[w];
-        r = r + 1 == tile ? 0 : r + 1;
-      }
-      i += kWide;
-    }
-    for (; i < n; ++i) {
-      col[r * stride] += __ldcg(p + (int64_t)i * n_feat);
-      r = r + 1 == tile ? 0 : r + 1;
-    }
-    for (r = 0; r < tile; ++r) out_col[(int64_t)r * n_feat] = col[r * stride];
-  }
-  if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
+  finish_unit(col, stride, out_col, scratch, counters, &h.last, unit, u, first, count, tile,
+              n_feat, f, active, accumulate);
 }
 
 // Scalar body (replaces _kernel_scalar, scv_spmm.py:57): the plain
-// per-entry loop out[r, :] += v * Z[c, :], kept as the measured baseline.
-// One thread block per whole block-row run (RunIndex.ptr) and feature block,
-// the strip in shared memory as in the vector body, but no work units, no
-// unrolled gathers and no dense branch; each tile's entries are staged
-// through shared memory kStage at a time (the TPU body holds them in SMEM),
-// and every thread then walks them in entry order.  Bounded by one dependent
-// chain of loads per entry and by its longest run.
-__global__ void __launch_bounds__(kMaxThreads)
+// per-entry loop out[r, :] += v * Z[c, :], entry after entry, kept as the
+// measured baseline; no dense branch.  Bounded on this card, as the vector
+// body is, by latency rather than bytes: each entry is a Z-row gather and
+// a read-modify-write of one strip row that the next entry may touch, so
+// a warp's strip updates form one dependent chain (a shared-memory load,
+// an FMA, a store) and a launch lasts about as long as its heaviest unit's
+// chain.  The design:
+//   * work units, as the vector body's: one block per (unit, feature
+//     block), heaviest first; a split run merged by the same finish_unit;
+//   * entries staged asynchronously.  A tile's live entries lie contiguous
+//     in rows/cols/vals (slot t * cap + j), so warp 0 cuts the unit's
+//     tiles into chunks of at most kPieces tile slices and 4 * kQuads
+//     entries (plan_chunk) and copies them with cp.async into a ring of
+//     kStages stages (copy_chunk): 16-byte copies where a quad of entries
+//     is whole and the three arrays share their 16-byte phase, 4-byte
+//     copies at a slice's unaligned head and tail (a cap that is not a
+//     multiple of 4).  The next chunk lands while the block walks this one;
+//     one barrier a chunk;
+//   * gathers in flight: a thread (one feature column) requests the Z
+//     values of the next batch of kBatch entries (one slice's) before it
+//     reads the current batch's rows and values into registers and adds
+//     it, so the next batch's gathers overlap the current batch's strip
+//     updates, which run one entry after another, in entry order.  Two
+//     register buffers take the batches' Z values in turn, and an address
+//     is one 32 x 32 -> 64-bit multiply-add from the slice's first Z row;
+//   * shared-memory traffic: each warp reads every staged entry, so a
+//     batch that starts on a quad reads rows, columns and values four at
+//     a time (16-byte broadcasts); an unaligned slice's first 1-3 entries
+//     are a batch of their own, read one by one.
+// No float atomics: two launches on the same inputs give the same bits.
+constexpr int kBatch = 16;   // entries a scalar-body thread holds in registers at a time
+constexpr int kQuads = 128;  // 16-byte quads of each entry array a stage holds
+constexpr int kStages = 2;   // stages in the scalar body's ring
+constexpr int kPieces = 32;  // tile slices a chunk holds at most (one per lane of warp 0)
+static_assert(kBatch % 4 == 0, "a batch on a quad is read a quad at a time");
+
+// One chunk of a unit's live entries: up to kPieces slices of consecutive
+// tiles.  Slice p is `count[p]` entries from slot `src[p]`, staged from
+// element `dst[p]` of the stage's arrays, whose 16-byte phase is src's; it
+// starts in quad `quad[p]`, and `quad[n_pieces]` is the quads used.
+struct Chunk {
+  int64_t src[kPieces];
+  int dst[kPieces];
+  int count[kPieces];
+  int zrow[kPieces];  // the slice's tile's first Z row, tile_col * tile
+  int quad[kPieces + 1];
+  int n_pieces;
+  int last;  // the unit's last chunk
+};
+
+struct __align__(16) Stage {
+  int32_t rows[4 * kQuads];
+  int32_t cols[4 * kQuads];
+  float vals[4 * kQuads];
+  Chunk chunk;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Warp 0: plans the chunk that starts at the cursor (tile t, entry j) of
+// tiles [t, end) into ch, and moves the cursor past it.  Lane l looks at
+// tile t + l: its slice needs ceil((phase + count) / 4) quads, and a
+// warp-wide sum places the slices until kQuads are used; the last slice
+// may be cut.  Tiles without entries give no slice.
+__device__ __forceinline__ void plan_chunk(Chunk& ch, int& t, int& j, int end,
+                           const int32_t* __restrict__ nnz_in_tile,
+                           const int32_t* __restrict__ tile_col,
+                           const int32_t* __restrict__ rows, int cap, int tile) {
+  const int lane = threadIdx.x;
+  const int tt = t + lane;
+  const bool valid = tt < end;
+  const int j0 = lane == 0 ? j : 0;
+  const int count = valid ? nnz_in_tile[tt] - j0 : 0;
+  const int64_t src = (int64_t)tt * cap + j0;
+  const int phase = valid ? (int)((reinterpret_cast<uintptr_t>(rows + src) >> 2) & 3) : 0;
+  const int quads = count > 0 ? (phase + count + 3) >> 2 : 0;
+  int incl = quads;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += x;
+  }
+  const int excl = incl - quads;
+  const bool taken = count > 0 && excl < kQuads;
+  const int n_take = !taken ? 0 : incl <= kQuads ? count : 4 * (kQuads - excl) - phase;
+  const unsigned took = __ballot_sync(kFullMask, taken);
+  if (taken) {
+    const int p = __popc(took & ((1u << lane) - 1));
+    ch.src[p] = src;
+    ch.dst[p] = 4 * excl + phase;
+    ch.count[p] = n_take;
+    ch.zrow[p] = tile_col[tt] * tile;
+    ch.quad[p] = excl;
+  }
+  // tiles given whole form a prefix of the lanes; the cursor moves to the
+  // first tile not given whole, past what it gave
+  const int whole = __popc(__ballot_sync(kFullMask, valid && incl <= kQuads));
+  const int j_next = __shfl_sync(kFullMask, j0 + n_take, whole & 31);
+  const int total = __shfl_sync(kFullMask, incl, 31);
+  t += whole;
+  j = whole < 32 && t < end ? j_next : 0;
+  if (lane == 0) {
+    const int n_pieces = __popc(took);
+    ch.n_pieces = n_pieces;
+    ch.quad[n_pieces] = min(total, kQuads);
+    ch.last = t >= end;
+  }
+  __syncwarp();
+}
+
+// Warp 0: copies the planned chunk into its stage with cp.async, one quad
+// of each array a lane at a time, and commits the copies as one group.
+// `wide`: rows, cols and vals share their 16-byte phase, so a whole quad
+// is one 16-byte copy of each.
+__device__ __forceinline__ void copy_chunk(Stage& s, const int32_t* __restrict__ rows,
+                            const int32_t* __restrict__ cols, const float* __restrict__ vals,
+                            bool wide) {
+  const Chunk& ch = s.chunk;
+  const int n_pieces = ch.n_pieces;
+  for (int q = threadIdx.x; q < ch.quad[n_pieces]; q += 32) {
+    int lo = 0, hi = n_pieces - 1;  // the last slice that starts at or before quad q
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (ch.quad[mid] <= q) lo = mid; else hi = mid - 1;
+    }
+    const int dst = ch.dst[lo];
+    const int64_t src = ch.src[lo];
+    const int e0 = 4 * q - dst;  // the quad's first element, within the slice
+    const int n = ch.count[lo];
+    if (wide && e0 >= 0 && e0 + 4 <= n) {
+      cp_async16(s.rows + 4 * q, rows + src + e0);
+      cp_async16(s.cols + 4 * q, cols + src + e0);
+      cp_async16(s.vals + 4 * q, vals + src + e0);
+    } else {
+      for (int e = max(e0, 0); e < min(e0 + 4, n); ++e) {
+        cp_async4(s.rows + dst + e, rows + src + e);
+        cp_async4(s.cols + dst + e, cols + src + e);
+        cp_async4(s.vals + dst + e, vals + src + e);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// A batch of the staged chunk: consecutive entries of one slice, from
+// element `i`, whose Z rows start at `zrow`.  A batch starts on a quad
+// (i % 4 == 0) and holds up to kBatch entries, or is a slice's unaligned
+// head and holds the up to 3 entries before its first quad.
+struct Batch {
+  int i, n, zrow;
+};
+
+// The batch after `b` (n = 0 past the chunk's end); (p, left): the slice
+// being read and the entries left in it after b.
+__device__ __forceinline__ Batch next_batch(const Chunk& ch, const Batch& b, int& p, int& left) {
+  Batch nb{b.i + b.n, 0, b.zrow};
+  if (left == 0 && p + 1 < ch.n_pieces) {
+    ++p;
+    nb.i = ch.dst[p];
+    nb.zrow = ch.zrow[p];
+    left = ch.count[p];
+  }
+  nb.n = min(nb.i & 3 ? 4 - (nb.i & 3) : kBatch, left);
+  left -= nb.n;
+  return nb;
+}
+
+// Reads batch b's elements of staged array `a` into registers: a quad
+// (one 16-byte broadcast) at a time, or one by one for an unaligned head.
+template <typename T, typename T4>
+__device__ __forceinline__ void read_staged(const T* a, const Batch& b, T* out) {
+  if ((b.i & 3) == 0) {
+#pragma unroll
+    for (int q = 0; q < kBatch / 4; ++q) {
+      if (4 * q < b.n) {
+        const T4 x = *reinterpret_cast<const T4*>(a + b.i + 4 * q);
+        out[4 * q] = x.x;
+        out[4 * q + 1] = x.y;
+        out[4 * q + 2] = x.z;
+        out[4 * q + 3] = x.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k < b.n) out[k] = a[b.i + k];
+    }
+  }
+}
+
+// Requests the Z values of batch b for this thread's column: `zcol` is
+// this thread's column of Z, `ld4` a Z row's bytes.  The slice's first Z
+// row is found once; each entry's address is then one 32 x 32 -> 64-bit
+// multiply-add from it.  kFull: the batch holds kBatch entries, so no
+// entry needs a predicate.
+template <bool kFull>
+__device__ __forceinline__ void gather(const Stage& s, const Batch& b, const char* zcol, int ld4,
+                                       float* zv) {
+  int c[kBatch];
+  read_staged<int, int4>(s.cols, b, c);
+  const uint64_t zs = reinterpret_cast<uint64_t>(zcol + (int64_t)b.zrow * ld4);
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    const uint64_t a = (uint64_t)(unsigned)c[k] * (unsigned)ld4 + zs;
+    if (kFull || k < b.n) zv[k] = __ldg(reinterpret_cast<const float*>(a));
+  }
+}
+
+// Adds batch b, whose Z values are zv, into this thread's strip column
+// (`stride4`: a strip row's bytes), one entry after another.
+template <bool kFull>
+__device__ __forceinline__ void add_batch(const Stage& s, const Batch& b, const float* zv,
+                                          char* col, int stride4) {
+  int r[kBatch];
+  float v[kBatch];
+  read_staged<int, int4>(s.rows, b, r);
+  read_staged<float, float4>(s.vals, b, v);
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    if (kFull || k < b.n) {
+      float* x = reinterpret_cast<float*>(col + r[k] * stride4);
+      *x = fmaf(v[k], zv[k], *x);
+    }
+  }
+}
+
+// Adds the staged chunk into this thread's strip column, entry after
+// entry.  The next batch's Z values are requested before the current
+// batch's rows and values are read and the batch is added, so they load
+// while its strip updates run.
+__device__ __forceinline__ void walk_chunk(const Stage& s, float* col, int stride,
+                                           const float* zsrc, int ld) {
+  const char* zcol = reinterpret_cast<const char*>(zsrc);
+  char* colb = reinterpret_cast<char*>(col);
+  const int ld4 = 4 * ld, stride4 = 4 * stride;
+  int p = -1, left = 0;
+  // gathers the next batch into `into`, then adds `b` from `from`; returns
+  // the next batch
+  const auto step = [&](const Batch& b, const float* from, float* into) {
+    const Batch nb = next_batch(s.chunk, b, p, left);
+    if (nb.n == kBatch) gather<true>(s, nb, zcol, ld4, into);
+    else gather<false>(s, nb, zcol, ld4, into);
+    if (b.n == kBatch) add_batch<true>(s, b, from, colb, stride4);
+    else add_batch<false>(s, b, from, colb, stride4);
+    return nb;
+  };
+  float za[kBatch], zb[kBatch];  // two batches' Z values, in turn
+  Batch b = next_batch(s.chunk, Batch{0, 0, 0}, p, left);
+  if (b.n == kBatch) gather<true>(s, b, zcol, ld4, za); else gather<false>(s, b, zcol, ld4, za);
+  while (b.n > 0) {
+    b = step(b, za, zb);
+    if (b.n == 0) break;
+    b = step(b, zb, za);
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 scv_spmm_runs_scalar_kernel(const int32_t* __restrict__ tile_row,
                             const int32_t* __restrict__ tile_col,
                             const int32_t* __restrict__ nnz_in_tile,
                             const int32_t* __restrict__ rows,
                             const int32_t* __restrict__ cols,
                             const float* __restrict__ vals,
-                            const int32_t* __restrict__ run_ptr,
+                            const int4* __restrict__ units,
+                            const int32_t* __restrict__ unit_ptr,
+                            const int32_t* __restrict__ order,
                             const float* __restrict__ z,
                             float* __restrict__ out,
+                            float* __restrict__ scratch,
+                            int32_t* __restrict__ counters,
                             int cap, int n_feat, int tile, int accumulate) {
   extern __shared__ float4 smem4[];
-  float* strip = reinterpret_cast<float*>(smem4);  // [tile][blockDim.x]
   const int stride = blockDim.x;
-  int32_t* s_rows = reinterpret_cast<int32_t*>(strip + tile * stride);
-  int32_t* s_cols = s_rows + kStage;
-  float* s_vals = reinterpret_cast<float*>(s_cols + kStage);
+  float* strip = reinterpret_cast<float*>(smem4);  // [tile][stride]
+  Stage* ring = reinterpret_cast<Stage*>(strip + tile * stride);
+  int* last = reinterpret_cast<int*>(ring + kStages);
   const int f = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = f < n_feat;  // the rest only help stage entries
+  const bool active = f < n_feat;  // the rest reach every barrier, nothing more
   float* col = strip + threadIdx.x;
 
-  const int t_begin = run_ptr[blockIdx.x];
-  const int t_end = run_ptr[blockIdx.x + 1];
-  float* out_col = out + (int64_t)tile_row[t_begin] * tile * n_feat + f;
+  const int u = order[blockIdx.x];
+  const int4 unit = units[u];  // first tile, end tile, run, scratch slot
+  const int first = unit_ptr[unit.z];
+  const int count = unit_ptr[unit.z + 1] - first;
+  float* out_col = out + (int64_t)tile_row[unit.x] * tile * n_feat + f;
+  if (active) seed_strip(col, stride, out_col, n_feat, tile, accumulate && count == 1);
 
-  if (active) {
-    for (int r = 0; r < tile; ++r) {
-      col[r * stride] = accumulate ? out_col[(int64_t)r * n_feat] : 0.0f;
+  const bool producer = threadIdx.x < 32;
+  const auto align16 = [](const void* a) { return reinterpret_cast<uintptr_t>(a) & 15; };
+  const bool wide = align16(rows) == align16(cols) && align16(rows) == align16(vals);
+  int t = unit.x, j = 0;  // warp 0's cursor
+  if (producer) {
+    for (int c = 0; c < kStages - 1; ++c) {
+      plan_chunk(ring[c].chunk, t, j, unit.y, nnz_in_tile, tile_col, rows, cap, tile);
+      copy_chunk(ring[c], rows, cols, vals, wide);
     }
   }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int nnz = nnz_in_tile[t];
-    const float* z_col = z + (int64_t)tile_col[t] * tile * n_feat + f;
-    for (int j0 = 0; j0 < nnz; j0 += kStage) {
-      const int n = min(kStage, nnz - j0);
-      const int64_t base = (int64_t)t * cap + j0;
-      __syncthreads();  // every thread is done with the previous stage
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        s_rows[i] = rows[base + i];
-        s_cols[i] = cols[base + i];
-        s_vals[i] = vals[base + i];
-      }
-      __syncthreads();
-      if (!active) continue;
-      for (int i = 0; i < n; ++i) {
-        const int r = s_rows[i];
-        col[r * stride] = fmaf(s_vals[i], z_col[(int64_t)s_cols[i] * n_feat],
-                               col[r * stride]);
-      }
+  for (int c = 0;; ++c) {
+    const Stage& s = ring[c % kStages];
+    if (producer) cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c has landed; every thread is done with chunk c - 1
+    const bool final = s.chunk.last;
+    if (producer && !final) {
+      Stage& next = ring[(c + kStages - 1) % kStages];  // chunk c - 1's stage
+      plan_chunk(next.chunk, t, j, unit.y, nnz_in_tile, tile_col, rows, cap, tile);
+      copy_chunk(next, rows, cols, vals, wide);
     }
+    if (active) walk_chunk(s, col, stride, z + f, n_feat);
+    if (final) break;
   }
-
-  if (active) {
-    for (int r = 0; r < tile; ++r) {
-      out_col[(int64_t)r * n_feat] = col[r * stride];
-    }
-  }
+  finish_unit(col, stride, out_col, scratch, counters, last, unit, u, first, count, tile,
+              n_feat, f, active, accumulate);
 }
 
 // Shared memory above the 48 KB a block gets by default needs the kernel's
@@ -550,29 +834,32 @@ extern "C" int scv_spmm_runs(const void* tile_row, const void* tile_col,
   return (int)cudaGetLastError();
 }
 
-// Launches the scalar body over one segment whose runs are given by run_ptr
-// (n_runs + 1 offsets into the tile arrays); other arguments as
-// scv_spmm_runs without the units' and the dense branch's.  Shared memory: the strip plus kStage staged entries (12 bytes
-// each); above 48 KB the kernel opts in.
+// Launches the scalar body over one segment's n_units work units; the
+// arguments as scv_spmm_runs, without the dense branch's.  Shared memory:
+// the tile x threads f32 strip and kStages stages of staged entries and
+// their chunk plan; above 48 KB the kernel opts in.
 extern "C" int scv_spmm_runs_scalar(const void* tile_row, const void* tile_col,
                                     const void* nnz_in_tile, const void* rows,
                                     const void* cols, const void* vals,
-                                    const void* run_ptr, const void* z, void* out,
-                                    int n_runs, int cap, int n_feat, int tile,
+                                    const void* units, const void* unit_ptr,
+                                    const void* order, const void* z, void* out,
+                                    void* scratch, void* counters,
+                                    int n_units, int cap, int n_feat, int tile,
                                     int threads, int accumulate, void* stream) {
   static bool opted = false;
-  if (!valid_launch(n_runs, n_feat, tile, threads)) {
+  if (!valid_launch(n_units, n_feat, tile, threads)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = sizeof(float) * (size_t)tile * (size_t)threads +
-                      (size_t)kStage * (2 * sizeof(int32_t) + sizeof(float));
+                      sizeof(Stage) * kStages + 16;
   const int rc = reserve_smem(scv_spmm_runs_scalar_kernel, smem, &opted);
   if (rc != 0) return rc;
-  const dim3 grid((unsigned)n_runs, (unsigned)((n_feat + threads - 1) / threads));
+  const dim3 grid((unsigned)n_units, (unsigned)((n_feat + threads - 1) / threads));
   scv_spmm_runs_scalar_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)tile_row, (const int32_t*)tile_col,
       (const int32_t*)nnz_in_tile, (const int32_t*)rows, (const int32_t*)cols,
-      (const float*)vals, (const int32_t*)run_ptr, (const float*)z,
-      (float*)out, cap, n_feat, tile, accumulate);
+      (const float*)vals, (const int4*)units, (const int32_t*)unit_ptr,
+      (const int32_t*)order, (const float*)z, (float*)out, (float*)scratch,
+      (int32_t*)counters, cap, n_feat, tile, accumulate);
   return (int)cudaGetLastError();
 }

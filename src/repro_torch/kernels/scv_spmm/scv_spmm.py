@@ -37,7 +37,9 @@ scalar_launches = 0
 MAX_THREADS = 128  # feature columns per block; one thread per column
 SMEM_BYTES = 48 * 1024  # shared memory a block gets without opting in
 SMEM_OPT_IN_BYTES = 227 * 1024  # the most a block may opt in to (H100)
-SCALAR_STAGE = 256  # entries the scalar body stages in shared memory at a time
+SCALAR_STAGES = 2  # stages in the scalar body's ring of staged entries
+SCALAR_QUADS = 128  # 16-byte quads of each entry array (rows, cols, vals) a stage holds
+SCALAR_PIECES = 32  # tile slices a stage's chunk holds at most
 UNIT_ENTRIES = 256  # entries the vector body stages at a time (16 bytes each)
 UNIT_HEADERS = 256  # tile headers the vector body stages at a time
 BODIES = ("vector", "scalar")
@@ -54,28 +56,30 @@ def smem_bytes(tile: int, threads: int, body: str = "vector", dense: bool = Fals
     count): the ``tile x threads`` f32 strip, and for the vector body the
     staged entries and headers, plus the dense branch's ``tile x threads``
     f32 Z block when a tile of the launch is dense; for the scalar body its
-    staged entries."""
+    ring of stages (each: three arrays of ``4 * SCALAR_QUADS`` entries and
+    the chunk's plan) and a flag."""
     strip = 4 * tile * threads
     if body == "scalar":
-        return strip + 12 * SCALAR_STAGE
+        plan = 8 * SCALAR_PIECES + 4 * (4 * SCALAR_PIECES + 1) + 8  # struct Chunk
+        stage = 48 * SCALAR_QUADS + -(-plan // 8) * 8  # struct Stage, before its alignment
+        return strip + SCALAR_STAGES * (-(-stage // 16) * 16) + 16
     headers = 4 * (5 * UNIT_HEADERS + 4)  # five header arrays, one a header longer, 3 counts
     return strip * (2 if dense else 1) + 16 * UNIT_ENTRIES + headers
 
 
 def threads_for(n_feat: int, tile: int, body: str = "vector", dense: bool = False) -> int:
     """Threads per block: the feature width rounded up to whole warps, at
-    most ``MAX_THREADS``.  The vector body keeps the full width, so that a
-    block stages its entries for as many columns as it can, and opts in to
-    more than 48 KB of shared memory where it needs to; it shrinks only
-    where the full width does not fit ``SMEM_OPT_IN_BYTES``.  The scalar
-    body keeps its measured configuration: the widest that fits the 48 KB
-    a block gets by default, else the widest that fits the opt-in."""
+    most ``MAX_THREADS``, so that a block stages its entries for as many
+    columns as it can; above 48 KB of shared memory the kernel opts in, and
+    the width shrinks only where it does not fit ``SMEM_OPT_IN_BYTES``.
+    Both bodies take this rule.  For the scalar body it was measured
+    against the widest width within the 48 KB a block gets by default (at
+    T = 128 and F = 128: 64 threads, two feature blocks, each staging every
+    entry): the same time on the H100 (``PERF.md``, kernel table row 4)."""
     full = min(MAX_THREADS, -(-n_feat // 32) * 32)
-    limits = (SMEM_BYTES, SMEM_OPT_IN_BYTES) if body == "scalar" else (SMEM_OPT_IN_BYTES,)
-    for limit in limits:
-        for threads in range(full, 0, -32):
-            if smem_bytes(tile, threads, body, dense) <= limit:
-                return threads
+    for threads in range(full, 0, -32):
+        if smem_bytes(tile, threads, body, dense) <= SMEM_OPT_IN_BYTES:
+            return threads
     raise ValueError(
         f"tile {tile} needs {smem_bytes(tile, 32, body, dense)} bytes of shared "
         f"memory even at 32 threads, over the {SMEM_OPT_IN_BYTES} a block may opt in to"
@@ -87,16 +91,15 @@ def _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile
     named = {
         "tile_row": tile_row, "tile_col": tile_col, "nnz_in_tile": nnz_in_tile,
         "rows": rows, "cols": cols, "vals": vals, "z": z, "out": out,
-        "runs.ptr": runs.ptr, "runs.units": runs.units, "runs.unit_ptr": runs.unit_ptr,
-        "runs.order": runs.order,
+        "runs.units": runs.units, "runs.unit_ptr": runs.unit_ptr, "runs.order": runs.order,
     }
     for name, t in named.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, z on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("tile_row", "tile_col", "nnz_in_tile", "rows", "cols", "runs.ptr",
-                 "runs.units", "runs.unit_ptr", "runs.order"):
+    for name in ("tile_row", "tile_col", "nnz_in_tile", "rows", "cols", "runs.units",
+                 "runs.unit_ptr", "runs.order"):
         if named[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {named[name].dtype}")
     for name in ("vals", "z", "out"):
@@ -161,9 +164,9 @@ def scv_spmm_runs(
     tile with ``nnz > dense_threshold >= 0`` through the dense branch; a
     negative one turns the branch off.  Whether a tile of the launch does
     so is read on the host from ``runs.max_nnz``.  The vector body launches
-    one block per (work unit, feature block) of ``runs``, the scalar body
-    one per (run, feature block).  Launches that share ``runs`` must be
-    ordered on one stream: the split runs' counters are the run index's."""
+    one block per (work unit, feature block) of ``runs``, and so does the
+    scalar body.  Launches that share ``runs`` must be ordered on one
+    stream: the split runs' counters are the run index's."""
     global launches, dense_launches, scalar_launches
     if body not in BODIES:
         raise ValueError(f"unknown kernel body {body!r}")
@@ -205,10 +208,10 @@ def _launch(lib, tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs
             accumulate, body, dense_threshold, stream) -> int:
     """One launch through the C entries; returns their CUDA error code.
     ``dense_threshold`` is negative when no tile of the launch is dense,
-    and only then does the kernel keep no room for the Z block.  The vector
-    body's scratch (one partial strip per unit of a split run) is a
-    ``torch.empty`` on ``z``'s device; its counters are the run index's,
-    zeroed once per device and width."""
+    and only then does the kernel keep no room for the Z block.  Both
+    bodies' scratch (one partial strip per unit of a split run) is a
+    ``torch.empty`` on ``z``'s device; their counters are the run index's,
+    zeroed once per device and feature-block count."""
     n_feat = z.shape[1]
     dense = dense_threshold >= 0
     threads = threads_for(n_feat, tile, body, dense)
@@ -216,11 +219,6 @@ def _launch(lib, tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs
     def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
         return ctypes.c_void_p(None if t is None else t.data_ptr())
 
-    tiles = (ptr(tile_row), ptr(tile_col), ptr(nnz_in_tile), ptr(rows), ptr(cols), ptr(vals))
-    shape = (vals.shape[1], n_feat, tile, threads, int(accumulate))
-    if body == "scalar":
-        return lib.scv_spmm_runs_scalar(*tiles, ptr(runs.ptr), ptr(z), ptr(out),
-                                        runs.n_runs, *shape, ctypes.c_void_p(stream))
     scratch = counters = None
     if runs.n_split_units:
         # freed when this returns, while the launch may still run: the caching
@@ -228,6 +226,10 @@ def _launch(lib, tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs
         scratch = torch.empty((runs.n_split_units, tile, n_feat), dtype=torch.float32,
                               device=z.device)
         counters = runs.counters(z.device, -(-n_feat // threads))
-    return lib.scv_spmm_runs(*tiles, ptr(runs.units), ptr(runs.unit_ptr), ptr(runs.order),
-                             ptr(z), ptr(out), ptr(scratch), ptr(counters), runs.n_units,
-                             *shape, z.shape[0], dense_threshold, ctypes.c_void_p(stream))
+    args = (ptr(tile_row), ptr(tile_col), ptr(nnz_in_tile), ptr(rows), ptr(cols), ptr(vals),
+            ptr(runs.units), ptr(runs.unit_ptr), ptr(runs.order), ptr(z), ptr(out),
+            ptr(scratch), ptr(counters), runs.n_units, vals.shape[1], n_feat, tile, threads,
+            int(accumulate))
+    if body == "scalar":
+        return lib.scv_spmm_runs_scalar(*args, ctypes.c_void_p(stream))
+    return lib.scv_spmm_runs(*args, z.shape[0], dense_threshold, ctypes.c_void_p(stream))

@@ -1,10 +1,12 @@
 """The SCV SpMM CUDA kernels against their plain versions, on the card:
 the vector body (sparse branch, accumulate mode, dense-tile branch; runs
 split into many work units, summed in a fixed order by the run's last
-block), the scalar body, the shared-memory opt-in at T = 128, a refused
-launch, repeat launches giving the same bits, gradients through a CUDA
-forward, and plans placed on four slots of the card by the sharding
-executor.
+block), the scalar body (over work units too, with its entries staged by
+asynchronous copies: split runs, accumulate mode, a cap and leaf storage
+that are not 16-byte aligned, an all-zero run), the shared-memory opt-in
+at T = 128, a refused launch, repeat launches giving the same bits,
+gradients through a CUDA forward, and plans placed on four slots of the
+card by the sharding executor.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -304,6 +306,119 @@ def test_back_to_back_launches_give_identical_bits(dev, monkeypatch):
         for c in s.runs._counters.values():
             assert not bool(c.any())
     want = ref.scv_spmm_reference_plan(plan, z)
+    assert (first - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the scalar body over work units
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("n_feat", [128, 40])
+def test_scalar_body_split_runs_bit_exact_on_integers(dev, monkeypatch, tile, n_feat):
+    monkeypatch.setattr(scv, "UNIT_WORK", 96)
+    plan = _ints(_hub(dev, tile), tile + 1)
+    hub_units = max(int(np.diff(s.runs.unit_ptr.cpu().numpy()).max()) for s in plan.segments
+                    if s.n_tiles)
+    assert hub_units >= 8, "want a run split into many units"
+    z = torch.randint(-4, 5, (plan.shape[1], n_feat),
+                      generator=torch.Generator().manual_seed(n_feat)).float().to(dev)
+    kmod.reset_counts()
+    for init in ("coverage", "zeros"):
+        got = scv_spmm_plan(plan, z, init=init, body="scalar")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="scalar"))
+    assert (kmod.scalar_launches, kmod.launches) == (2 * plan_launches(plan), 0)
+
+
+def test_scalar_accumulate_over_split_runs_keeps_unvisited_rows(dev, monkeypatch):
+    monkeypatch.setattr(scv, "UNIT_WORK", 64)
+    plan = _ints(_hub(dev, 64), 9)
+    s = max(plan.segments[1:], key=lambda s: s.runs.n_split_units)
+    assert s.runs.n_split_units > 0
+    z = torch.randint(-4, 5, (plan.shape[1], 40),
+                      generator=torch.Generator().manual_seed(10)).float().to(dev)
+    out = torch.full((plan.padded_shape[0], 40), 3.0, device=dev)
+    kmod.scv_spmm_runs(s.tile_row, s.tile_col, s.nnz_in_tile, s.rows, s.cols, s.vals,
+                       z, out, s.runs, tile=s.tile, accumulate=True, body="scalar")
+    part = ref.scv_spmm_reference(s.tile_row, s.tile_col, s.rows, s.cols, s.vals, z,
+                                  tile=s.tile, n_rows=out.shape[0], nnz_in_tile=s.nnz_in_tile)
+    assert torch.equal(out, part + 3.0)
+    visited = np.zeros(plan.n_row_blocks, bool)
+    visited[s.runs.rows] = True
+    assert not visited.all()
+
+
+def _misaligned(t: torch.Tensor, words: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts ``4 * words`` bytes
+    past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    start = (words - flat.data_ptr() // 4) % 4 + 4
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 * words
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n_feat", [128, 40])
+def test_scalar_body_unaligned_cap_bit_exact_on_integers(dev, monkeypatch, aligned, n_feat):
+    """Cap 37: a tile's entries start at slots of every 16-byte phase, so
+    the staging copies an unaligned head and tail.  ``aligned=False``: the
+    rows, cols and vals also start 4, 8 and 12 bytes past a 16-byte
+    boundary, so no 16-byte copy serves all three.  At UNIT_WORK 2,048 a
+    unit holds ~50 tiles, and its chunks end inside a tile."""
+    adj = powerlaw_edges(512, 60_000, seed=3)
+    plan = plan_from_tiles(coo_to_scv_tiles(adj, 64, cap=37), with_perm=False, device=dev)
+    plan = dataclasses.replace(plan, vals=torch.randint(
+        -4, 5, tuple(plan.vals.shape), generator=torch.Generator().manual_seed(11)).float().to(dev))
+    if not aligned:
+        plan = dataclasses.replace(plan, rows=_misaligned(plan.rows, 1),
+                                   cols=_misaligned(plan.cols, 2),
+                                   vals=_misaligned(plan.vals, 3))
+    assert plan.runs.n_split_units > 0
+    z = torch.randint(-4, 5, (plan.shape[1], n_feat),
+                      generator=torch.Generator().manual_seed(12)).float().to(dev)
+    kmod.reset_counts()
+    got = scv_spmm_plan(plan, z, body="scalar")
+    torch.cuda.synchronize()
+    assert kmod.scalar_launches == 1
+    assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="scalar"))
+
+
+def test_scalar_body_all_zero_run(dev):
+    """Block-rows no entry visits get coverage dummies: runs of one empty
+    unit, whose strips the launch still writes (zeros)."""
+    rng = np.random.default_rng(13)
+    r = rng.integers(0, 128, 5_000)  # block-rows 0 and 1 of 8 at T = 64
+    c = rng.integers(0, 512, 5_000)
+    a = COOMatrix(r.astype(np.int32), c.astype(np.int32),
+                  rng.integers(1, 4, 5_000).astype(np.float32), (512, 512))
+    plan = plan_from_tiles(coo_to_scv_tiles(a, 64), with_perm=False, device=dev)
+    units, up = plan.runs.units.cpu().numpy(), plan.runs.unit_ptr.cpu().numpy()
+    empty = [r for r in range(plan.runs.n_runs)
+             if up[r + 1] - up[r] == 1 and units[up[r], 0] == units[up[r], 1]]
+    assert len(empty) == 6
+    z = torch.randint(-4, 5, (512, 40), generator=torch.Generator().manual_seed(14)).float().to(dev)
+    got = scv_spmm_plan(plan, z, body="scalar")
+    assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="scalar"))
+    assert not bool(got[128:].any())
+
+
+def test_scalar_body_repeat_launches_give_identical_bits(dev, monkeypatch):
+    """Real-valued inputs over split runs: two scalar-body chains agree bit
+    for bit, and every split run's counter is back at 0 after each."""
+    monkeypatch.setattr(scv, "UNIT_WORK", 64)
+    plan = _hub(dev, 64)
+    assert _split_units(plan) > 0
+    z = torch.randn((plan.shape[1], 128), generator=torch.Generator().manual_seed(15)).to(dev)
+    first = scv_spmm_plan(plan, z, body="scalar")
+    second = scv_spmm_plan(plan, z, body="scalar")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for s in plan.segments:
+        for c in s.runs._counters.values():
+            assert not bool(c.any())
+    want = ref.scv_spmm_reference_plan(plan, z, body="scalar")
     assert (first - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 

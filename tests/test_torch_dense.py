@@ -215,14 +215,16 @@ def test_wrapper_refuses_tile_over_cap(rng):
     (128, 128, "vector", True, 128, True),  # strip + Z block 128 KB: opt in
     (128, 128, "vector", False, 128, True),
     (128, 64, "vector", False, 128, False),  # strip 32 KB + 13 KB staged
-    (128, 64, "scalar", False, 128, False),  # strip + 3 KB of staged entries
-    (128, 128, "scalar", False, 64, False),
+    (128, 64, "scalar", False, 128, False),  # strip 32 KB + a ring of 13.5 KB
+    (128, 128, "scalar", False, 128, True),  # strip 64 KB: opt in, as the vector body
+    (40, 128, "scalar", False, 64, False),
     (16, 32, "vector", True, 32, False),
 ])
 def test_threads_for_counts_dense_and_staging_memory(n_feat, tile, body, dense, threads, opt_in):
     assert kmod.threads_for(n_feat, tile, body, dense) == threads
     smem = kmod.smem_bytes(tile, threads, body, dense)
-    staged = 12 * kmod.SCALAR_STAGE if body == "scalar" else 16 * kmod.UNIT_ENTRIES
+    staged = (kmod.SCALAR_STAGES * 12 * 4 * kmod.SCALAR_QUADS if body == "scalar"
+              else 16 * kmod.UNIT_ENTRIES)
     assert smem >= tile * threads * 4 * (2 if dense else 1) + staged
     assert (smem > kmod.SMEM_BYTES) == opt_in
     assert smem <= kmod.SMEM_OPT_IN_BYTES

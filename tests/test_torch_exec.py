@@ -479,11 +479,26 @@ def test_prepare_replicated_and_decided(normalised):
     assert ex.prepare_graph(g, decision=texec.ShardingDecision("replicated")) is g
 
 
-def test_feature_slabs_need_a_column_each(normalised):
-    _, _, tp = normalised
-    sp = texec.PlanExecutor(devices=CPU8).prepare(tp, decision=_decision("features"))
-    with pytest.raises(ValueError, match="fewer than the 8 feature slabs"):
-        aggregate_scv_plan(sp, torch.zeros((700, 5)))
+@pytest.mark.parametrize("n_feat,parts", [(3, 8), (3, 4), (5, 8)])
+def test_feature_slabs_narrower_than_one_column(integer, n_feat, parts):
+    """Fewer columns than feature slabs: the last slabs are empty, and the
+    output and ``d/dz`` equal the reference's eager ones bit for bit on
+    integers (the reference pads Z's columns to the slab multiple)."""
+    a, jp, tp = integer
+    rng = np.random.default_rng(n_feat + parts)
+    z = rng.integers(-3, 4, (a.shape[1], n_feat)).astype(np.float32)
+    w = rng.integers(-3, 4, (a.shape[0], n_feat)).astype(np.float32)
+    want = np.asarray(j_aggregate(jp, jnp.asarray(z), backend="jnp"))
+    want_dz = np.asarray(jax.grad(lambda zz: jnp.sum(
+        j_aggregate(jp, zz, backend="jnp") * jnp.asarray(w)))(jnp.asarray(z)))
+    sp = texec.PlanExecutor(devices=CPU8).prepare(
+        tp, decision=texec.ShardingDecision("features", 1, parts))
+    tz = torch.from_numpy(z).requires_grad_(True)
+    got = aggregate_scv_plan(sp, tz)
+    assert got.shape == want.shape == (700, n_feat)
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    (dz,) = torch.autograd.grad((got * torch.from_numpy(w)).sum(), tz)
+    np.testing.assert_array_equal(dz.numpy(), want_dz)
 
 
 def test_pool_refuses_absent_devices(monkeypatch):

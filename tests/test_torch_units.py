@@ -1,14 +1,15 @@
 """The port's work-unit index (``core/scv.py::RunIndex``), on the CPU.
 
-The CUDA vector body launches one thread block per work unit: a span of
-one block-row run's tiles holding at most ``UNIT_WORK`` tiles + entries.
-The units of a split run each sum a partial strip from zero, and the last
-to finish adds the seed and the partials in unit order.  These tests hold
-the index's invariants on single-cap, bucketed and serving-composite plans,
-at the module's ``UNIT_WORK`` and at small limits that split many runs,
-and emulate that order of summation on the plain version: on integer
-inputs it equals the plain chain and the reference's jnp segment-sum bit
-for bit.  The kernel itself runs in ``tests/test_torch_cuda.py`` and
+Both CUDA bodies launch one thread block per work unit: a span of one
+block-row run's tiles holding at most ``UNIT_WORK`` tiles + entries.  The
+units of a split run each sum a partial strip from zero, and the last to
+finish adds the seed and the partials in unit order.  These tests hold the
+index's invariants on single-cap, bucketed and serving-composite plans, at
+the module's ``UNIT_WORK`` and at small limits that split many runs, and
+emulate that order of summation on the plain version: on integer inputs it
+equals the plain chain and the reference's jnp segment-sum bit for bit,
+and, for the scalar body on single-cap plans (an unaligned cap too), the
+reference's scalar kernel in interpret mode.  The kernel itself runs in ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` on the card.
 """
 import jax.numpy as jnp
@@ -16,13 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import scv as jscv
 from repro.core.aggregate import aggregate_coo_segsum as j_segsum
+from repro.core.formats import COOMatrix as JCOO
+from repro.kernels.scv_spmm import ops as jops
 from repro_torch.core import scv
 from repro_torch.core.formats import COOMatrix
 from repro_torch.kernels.scv_spmm import ref
 from repro_torch.models.gnn import build_graph
 from repro_torch.serve.graph_engine import assemble_batched_graph
-from repro_torch.simul.datasets import powerlaw_graph
+from repro_torch.simul.datasets import powerlaw_edges, powerlaw_graph
 
 KINDS = ("single", "bucketed", "composite")
 LIMITS = (None, 40, 8)  # None: the module's UNIT_WORK
@@ -175,8 +179,8 @@ def test_counters_zeroed_once_per_device_and_width(monkeypatch):
     assert ri.to("cpu").counters("cpu", 2) is not c  # a moved index has its own
 
 
-def _unit_chain(plan, z):
-    """The CUDA vector body's order of summation, on the plain version: per
+def _unit_chain(plan, z, body="vector"):
+    """The CUDA bodies' order of summation, on the plain version: per
     segment and run, each unit's partial strip from zero, then the seed and
     the partials added in unit order."""
     n_rows = plan.padded_shape[0]
@@ -189,10 +193,13 @@ def _unit_chain(plan, z):
             acc = out[strip].clone()
             for b, e, _, _ in units[up[r]:up[r + 1]]:
                 sel = slice(int(b), int(e))
-                acc += ref.scv_spmm_vector_reference(
-                    seg.tile_row[sel], seg.tile_col[sel], seg.rows[sel], seg.cols[sel],
-                    seg.vals[sel], z, tile=T, n_rows=n_rows, nnz_in_tile=seg.nnz_in_tile[sel],
-                    dense_threshold=scv.dense_tile_threshold(T))[strip]
+                args = (seg.tile_row[sel], seg.tile_col[sel], seg.rows[sel], seg.cols[sel],
+                        seg.vals[sel], z)
+                kw = dict(tile=T, n_rows=n_rows, nnz_in_tile=seg.nnz_in_tile[sel])
+                part = (ref.scv_spmm_reference(*args, **kw) if body == "scalar" else
+                        ref.scv_spmm_vector_reference(
+                            *args, dense_threshold=scv.dense_tile_threshold(T), **kw))
+                acc += part[strip]
             out[strip] = acc
     return out
 
@@ -208,3 +215,34 @@ def test_unit_sums_equal_plain_chain_and_reference(kind, limit, monkeypatch):
     want = np.asarray(j_segsum(jnp.asarray(a.rows), jnp.asarray(a.cols), jnp.asarray(a.vals),
                                jnp.asarray(z), plan.padded_shape[0]))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("limit", [None, 40])
+@pytest.mark.parametrize("cap", ["auto", 37])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_scalar_unit_sums_equal_reference_scalar_body(tile, cap, limit, monkeypatch):
+    """The scalar body's schedule: single-cap plans as the reference's
+    kernel benchmark builds them (the bucket ladder's top cap), and with a
+    cap that is no multiple of 4, whose tiles' entries start at unaligned
+    slots.  Per-unit plain sums merged in unit order equal the reference's
+    ``body="scalar"`` kernel (interpret mode) bit for bit on integers."""
+    if limit is not None:
+        monkeypatch.setattr(scv, "UNIT_WORK", limit)
+    a = powerlaw_edges(256, 12_000, seed=tile)
+    a = COOMatrix(a.rows, a.cols,
+                  np.random.default_rng(tile).integers(1, 4, a.rows.size).astype(np.float32),
+                  a.shape)
+    if cap == "auto":
+        cap = build_graph(a, tile=tile, bucket_caps="auto", device="cpu").plan.caps[-1]
+    plan = scv.plan_from_tiles(scv.coo_to_scv_tiles(a, tile, cap=cap))
+    jplan = jscv.plan_from_tiles(jscv.coo_to_scv_tiles(JCOO(a.rows, a.cols, a.vals, a.shape),
+                                                       tile, cap=cap))
+    split = plan.runs.n_split_units
+    assert split > 0, "want split runs"
+    z = np.random.default_rng(1).integers(-4, 5, (a.shape[1], 12)).astype(np.float32)
+    got = _unit_chain(plan, torch.from_numpy(z), body="scalar")
+    want = np.asarray(jops.scv_spmm_plan(jplan, jnp.asarray(z), interpret=True, feature_block=8,
+                                         body="scalar"))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, ref.scv_spmm_reference_plan(plan, torch.from_numpy(z), body="scalar"))
