@@ -91,8 +91,23 @@ Phases, each of which fails the run on error:
     placed composites in the cache.  Last, the plan placed ``features``
     1x8 on eight slots at F = 3 (five slabs empty, launching nothing),
     bit-exact with the unsharded chain on integers.
+13. The two-stage autotuner (``tune.Autotuner(device="cuda")``, top 2, 2
+    calibration reps) on three regimes: the reference autotune
+    benchmark's two at F = 32 (``powerlaw_graph(1 << 17, 1_000_000)``,
+    ``powerlaw_edges(2048, 1_000_000)``) and the arxiv-scale graph at F =
+    128.  Stage 1 must pick the reference's winner; stage 2 must time the
+    default control (T = 64, (8, 32, 128)) and keep the measured best.
+    The winner's chain, the default's and stage 1's best at T = 32 are
+    held against the plain version (bit-exact on integers, 1e-5 on
+    normalised values) and timed beside ``torch.sparse.mm`` and the bound;
+    a fresh tuner on the same store resolves all three with no search.
+    Then the arxiv-scale forward with the tuned layout (against the plain
+    forward, 1e-4, timed beside phase 5's), and phase 4's burst twice
+    through ``GraphServeEngine(autotune=True)``: every output against a
+    plain forward, launches equal to the engine's, no wave mixing two
+    resolved configs.
 
-Each of phases 4, 5, 8, 9, 10, 11 and 12 sets the kernels' launch counts
+Each of phases 4, 5, 8, 9, 10, 11, 12 and 13 sets the kernels' launch counts
 to 0 just before it drives its path and reads them just after.  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -140,6 +155,9 @@ SHARD_DECISIONS = (("tiles", 4, 1), ("features", 1, 2), ("2d", 2, 2))  # and wha
 SHARD_NNZ_THRESHOLD = 4096  # phase 12's serving: a wave holding more entries is placed
 SHARD_REQUESTS = 64
 NARROW_FEATURES, NARROW_PARTS = 3, 8  # phase 12: feature slabs narrower than a column
+TUNE_FEATURES = 32  # phase 13: the reference autotune benchmark's width
+TUNE_TOP_K, TUNE_CALIB_REPS = 2, 2  # phase 13: the reference autotune benchmark's search
+TUNE_REPS = 20  # phase 13: device_ms reps of each chain's longer re-time
 
 
 def check(cond: bool, msg: str) -> None:
@@ -933,6 +951,251 @@ def shard_drive(g, cfg, layout, dev, gen) -> dict:
         for run in runs))
 
 
+def tune_regimes(arxiv_adj, cfg) -> list:
+    """Phase 13's regimes: (name, adjacency, F, stage 1's winner (T,
+    ladder) as the reference's tuner picks it, whether the values are
+    integers)."""
+    from repro_torch.simul.datasets import powerlaw_edges, powerlaw_graph
+
+    return [
+        ("sparse 131,072/1M", powerlaw_graph(1 << 17, 1_000_000, seed=0), TUNE_FEATURES,
+         (64, (8,)), True),
+        ("dense 2,048/1M", powerlaw_edges(2048, 1_000_000, seed=0), TUNE_FEATURES,
+         (128, (128,)), True),
+        ("arxiv", arxiv_adj, cfg.d_in, (64, (8,)), False),
+    ]
+
+
+def timed_stages(tuner, seconds: dict):
+    """Record the host seconds of ``tuner``'s two stages in ``seconds``."""
+    for stage in ("_stage1", "_stage2"):
+        call = getattr(tuner, stage)
+
+        def timed(*args, call=call, stage=stage):
+            t0 = time.perf_counter()
+            try:
+                return call(*args)
+            finally:
+                seconds[stage] = time.perf_counter() - t0
+        setattr(tuner, stage, timed)
+
+
+def tune_chains(name, adj, n_feat, ints, plans, gen, dev) -> dict:
+    """Phase 13: each of ``plans`` (label -> plan of ``adj``) held against
+    the plain version (bit-exact on integer values and Z; within 1e-5 of
+    the largest magnitude on normalised values), then timed beside
+    ``torch.sparse.mm`` and the bound on the same matrix."""
+    from repro_torch.kernels.scv_spmm import ref
+    from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+    from repro_torch.serve.graph_engine import plan_launches
+
+    n_cols = adj.shape[1]
+    z_int = torch.randint(-4, 5, (n_cols, n_feat), generator=gen).float().to(dev)
+    z = torch.randn((n_cols, n_feat), generator=gen).to(dev)
+    out = {}
+    for label, plan in plans.items():
+        int_plan = plan if ints else with_integer_vals(plan, gen, dev)
+        k_int = scv_spmm_plan(int_plan, z_int)
+        p_int = ref.scv_spmm_reference_plan(int_plan, z_int)
+        check(torch.equal(k_int, p_int),
+              f"{name} {label} T={plan.tile}: integer inputs not bit-exact "
+              f"(max err {(k_int - p_int).abs().max().item()})")
+        err = 0.0
+        if not ints:
+            err, scale = rel_err(scv_spmm_plan(plan, z), ref.scv_spmm_reference_plan(plan, z))
+            check(err <= 1e-5 * scale, f"{name} {label}: max err {err} > 1e-5 * {scale}")
+        del k_int, p_int
+        entries = plan_entries(plan)
+        zz = z_int if ints else z
+        csr = csr_of(entries, (plan.padded_shape[0], n_cols), dev)
+        ms = device_ms(lambda: scv_spmm_plan(plan, zz), TUNE_REPS)
+        lib_ms = device_ms(lambda: torch.sparse.mm(csr, zz), TUNE_REPS)
+        bound_ms, bound_by = chain_bounds(plan, entries, n_feat)
+        del csr
+        out[label] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound_ms, err=err)
+        print(f"[tune]   {name} {label} chain T={plan.tile} caps {plan.caps}: "
+              f"{plan_launches(plan)} launches {ms:.4f} ms, torch.sparse.mm (CSR) "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); integer bit-exact"
+              + ("" if ints else f", normalised max abs err {err:.3e}"))
+    return out
+
+
+def tune_drive(arxiv_adj, arxiv, cfg, x, fwd_ms, pool, serve_gps, check_outputs, dev,
+               gen) -> dict:
+    """Phase 13: the two-stage autotuner on the card, a full-graph forward
+    and a serving burst with the tuned layouts; returns the numbers of the
+    run.  Raises on any disagreement."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.scv import DEFAULT_LADDER, DEFAULT_TILE
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.launch.graph_serve import build_default_engine, make_requests
+    from repro_torch.models.gnn import build_graph, gnn_forward, init_gnn
+    from repro_torch.serve.graph_engine import plan_launches
+    from repro_torch.tune import Autotuner, TunedConfig, TuneStore
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    store_path = os.path.join(tmp, "tune.json")
+    try:
+        regimes = tune_regimes(arxiv_adj, cfg)
+        default = (DEFAULT_TILE, DEFAULT_LADDER)
+        tuner = Autotuner(device=dev, store=TuneStore(store_path), top_k=TUNE_TOP_K,
+                          calib_reps=TUNE_CALIB_REPS)
+        kmod.reset_counts()
+        rows, tuned = [], {}
+        for name, adj, n_feat, want, ints in regimes:
+            stages = {}
+            timed_stages(tuner, stages)
+            launches_before = kmod.launches
+            tcfg = tuner.tune(adj, n_features=n_feat)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            res = tuner.last_result
+            top = res.candidates[0].config
+            check((top.tile, top.bucket_caps) == want,
+                  f"{name}: stage 1 picked T={top.tile} {top.bucket_caps}, the reference {want}")
+            cal = res.calibrated
+            keys = [(c.config.tile, c.config.bucket_caps) for c in cal]
+            check(default in keys, f"{name}: the default control was not measured")
+            best = min(cal, key=lambda c: c.measured_s)
+            check((tcfg.tile, tcfg.bucket_caps) == (best.config.tile, best.config.bucket_caps)
+                  and tcfg.source == "calibrated",
+                  f"{name}: the winner {tcfg} is not the measured best {best.config}")
+            check(kmod.launches - launches_before >= (1 + TUNE_CALIB_REPS) * len(cal),
+                  f"{name}: stage 2 launched {kmod.launches - launches_before} kernels")
+            print(f"[tune] {name} F={n_feat}: stage 1 {len(res.candidates)} candidates in "
+                  f"{stages['_stage1']:.2f} s, winner T={top.tile} caps {top.bucket_caps} "
+                  f"score {res.candidates[0].score_s:.4f} s (the reference's); stage 2 "
+                  f"{len(cal)} calibrated in {stages['_stage2']:.2f} s, "
+                  f"{kmod.launches - launches_before} launches")
+            for c in cal:
+                print(f"[tune]   candidate T={c.config.tile} caps {c.config.bucket_caps}: "
+                      f"score {c.score_s:.4f} s, measured {1e3 * c.measured_s:.4f} ms"
+                      + (" (default control)" if (c.config.tile, c.config.bucket_caps)
+                         == default else "")
+                      + (" <- winner" if c is best else ""))
+            print(f"[tune]   Spearman(predicted, measured) {res.rank_correlation:.3f}; "
+                  f"tuned T={tcfg.tile} caps {tcfg.bucket_caps}")
+            # the winner's chain, the default's and stage 1's best at T = 32
+            t32 = next(c.config for c in res.candidates if c.config.tile == 32)
+            plans = {}
+            for label, layout in (("tuned", tcfg), ("default", TunedConfig()),
+                                  ("best T=32", t32)):
+                if label == "default" and name == "arxiv":
+                    plans[label] = arxiv.plan  # phase 2's plan, built with the default
+                else:
+                    plans[label] = build_graph(adj, config=layout, with_edges=False,
+                                               device=dev).plan
+            chains = tune_chains(name, adj, n_feat, ints, plans, gen, dev)
+            ratio = chains["tuned"]["ms"] / chains["default"]["ms"]
+            print(f"[tune]   {name}: tuned/default chain {ratio:.3f} over {TUNE_REPS} reps"
+                  + (" (the tuned chain is slower in the longer re-time)" if ratio > 1 else ""))
+            rows.append(dict(regime=name, n_feat=n_feat, tuned=tcfg.to_json(),
+                             stage1_s=stages["_stage1"], stage2_s=stages["_stage2"],
+                             spearman=res.rank_correlation, chains=chains,
+                             tuned_over_default=ratio,
+                             calibrated=[(c.config.tile, c.config.bucket_caps, c.score_s,
+                                          c.measured_s) for c in cal]))
+            tuned[name] = tcfg
+            if name == "arxiv":
+                aplan = plans["tuned"]
+            del plans
+        # a fresh tuner on the same store: every regime from the cache
+        again = Autotuner(device=dev, store=TuneStore(store_path))
+        for name, adj, n_feat, _, _ in regimes:
+            check(again.tune(adj, n_features=n_feat) == tuned[name],
+                  f"{name}: the store resolved another config")
+        check(again.searches == 0 and again.cache_hits == len(regimes),
+              f"re-tune: {again.searches} searches, {again.cache_hits} cache hits")
+        print(f"[tune] re-tune from the store: {again.searches} searches, "
+              f"{again.cache_hits} cache hits")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b) the full-graph forward with the tuned layout (phase 5's weights)
+    acfg = tuned["arxiv"]
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    g = dataclasses.replace(arxiv, plan=aplan)
+    with torch.inference_mode():
+        out = gnn_forward(params, cfg, g, x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        reps = 5
+        before = kmod.launches
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = gnn_forward(params, cfg, g, x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        tuned_fwd_ms = (time.perf_counter() - t0) * 1e3 / reps
+        fwd_launches = kmod.launches - before
+        want = plain_gcn_forward(params, cfg, g, x)
+    check(fwd_launches == reps * plan_launches(aplan) * cfg.n_layers,
+          f"tuned arxiv forward launched {fwd_launches} kernels")
+    check(tuple(out.shape) == (arxiv_adj.shape[0], cfg.n_classes)
+          and bool(torch.isfinite(out).all()), "tuned arxiv forward output shape/finiteness")
+    err, scale = rel_err(out, want)
+    check(err <= 1e-4 * max(1.0, scale), f"tuned arxiv forward off the plain forward: {err}")
+    print(f"[tune] arxiv 2-layer gcn-paper forward, tuned T={acfg.tile} caps "
+          f"{acfg.bucket_caps}: {tuned_fwd_ms:.3f} ms per forward (host clock, {reps} "
+          f"forwards; phase 5's default layout {fwd_ms:.3f} ms), {fwd_launches // reps} "
+          f"launches each, max abs err vs plain forward {err:.3e}")
+    del out, want, g
+
+    # (c) serving with the tuner: phase 4's burst, then the same burst again
+    engine = build_default_engine(model=cfg, device=dev, seed=0, autotune=True)
+    waves = []
+    dispatch = engine._dispatch_wave
+
+    def record(wave):
+        waves.append({engine._resolve_config(engine._resolve_adj(r)) for r in wave})
+        return dispatch(wave)
+    engine._dispatch_wave = record
+    bursts = []
+    for burst in range(2):
+        reqs = make_requests(np.random.default_rng(2), pool, SERVE_REQUESTS, cfg.d_in)
+        for r in reqs:
+            engine.submit(r)
+        before, launches_before = engine.metrics(), kmod.launches
+        t0 = time.perf_counter()
+        engine.run()
+        wall = time.perf_counter() - t0
+        launches = kmod.launches - launches_before
+        m = engine.metrics()
+        check(launches == m["launches"] - before["launches"] > 0,
+              f"tuned serving burst {burst}: kernel launches {launches} != engine "
+              f"launches {m['launches'] - before['launches']}")
+        worst = check_outputs(engine, reqs, f"tuned serving burst {burst}")
+        bursts.append(dict(graphs_per_s=SERVE_REQUESTS / wall, launches=launches,
+                           waves=m["waves"] - before["waves"], worst=worst,
+                           searches=m["autotune_searches"] - before["autotune_searches"],
+                           cache_hits=m["autotune_cache_hits"] - before["autotune_cache_hits"]))
+        print(f"[tune] serving burst {burst} of {SERVE_REQUESTS} with autotune=True: "
+              f"{SERVE_REQUESTS / wall:.1f} graphs/s (phase 4's burst {serve_gps:.1f}), "
+              f"{bursts[-1]['waves']} waves, {bursts[-1]['searches']} searches, "
+              f"{bursts[-1]['cache_hits']} cache hits, plan builds "
+              f"{m['plan_build_seconds'] - before['plan_build_seconds']:.3f} s of "
+              f"{wall:.3f} s, kernel launches {launches} = engine launches, worst rel err "
+              f"{worst:.2e}")
+    check(all(len(w) == 1 for w in waves), "a wave mixed two resolved configs")
+    per_config = {}
+    for w in waves:
+        c = next(iter(w))
+        per_config[(c.tile, c.bucket_caps)] = per_config.get((c.tile, c.bucket_caps), 0) + 1
+    m = engine.metrics()
+    resolved = sorted({(c["tile"], tuple(c["bucket_caps"]))
+                       for c in m["resolved_configs"].values()})
+    print(f"[tune] serving: {len(m['resolved_configs'])} regimes resolved to {resolved}; "
+          f"waves per config {per_config}; no wave mixes two configs")
+    launches = kmod.launches
+    print(f"[tune] phase 13: {time.perf_counter() - t_phase:.1f} s, {launches} kernel launches "
+          f"({kmod.dense_launches} with a dense tile)")
+    return dict(regimes=rows, forward_ms=tuned_fwd_ms, bursts=bursts, launches=launches,
+                dense_launches=kmod.dense_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card only",
@@ -1143,6 +1406,7 @@ def main() -> int:
     t0 = time.perf_counter()
     engine.run()
     wall = time.perf_counter() - t0
+    serve_gps = SERVE_REQUESTS / wall
     serve_launches = kmod.launches
     m = engine.metrics()
     check(serve_launches > 0, "the serving drive launched no kernel")
@@ -1469,9 +1733,15 @@ def main() -> int:
     # -- 12. the sharding executor ------------------------------------------------
     shard = shard_drive(arxiv, cfg, layout, dev, gen)
     sync_all(dev)
+
+    # -- 13. the autotuner on the card ---------------------------------------------
+    tune = tune_drive(arxiv_adj, arxiv, cfg, x, fwd_ms, pool, serve_gps, check_outputs, dev,
+                      gen)
+    torch.cuda.synchronize()
     print(f"[paths] kernel launches: stream drive {stream['launches']} "
           f"({stream['dense_launches']} dense), tracked serving {tracked['launches']}, "
-          f"sharding executor {shard['launches']}")
+          f"sharding executor {shard['launches']}, tuner, tuned forward and tuned "
+          f"serving {tune['launches']}")
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

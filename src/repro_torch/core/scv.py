@@ -2,6 +2,9 @@
 
 Port of ``src/repro/core/scv.py``:
 
+* :class:`SCVMatrix` — the logical format of the paper's Fig. 1(d):
+  fixed-height column vectors in row-major (SCV) or Z-Morton (SCV-Z)
+  order, built by :func:`coo_to_scv`.  The simulator replays it.
 * :class:`SCVTiles` — the host-side tile layout: entries regrouped into
   T x T tiles, each padded to a fixed entry capacity, tiles scheduled so
   that all tiles of one block-row are consecutive.  Built by
@@ -87,6 +90,43 @@ def bucket_caps_for(
     return tuple(sorted(caps))
 
 
+def launched_slots(
+    counts: np.ndarray,
+    tile: int,
+    caps: tuple[int, ...],
+    n_row_blocks: int = 0,
+) -> int:
+    """Capacity slots a bucketed plan *launches* for a tile-nnz histogram.
+
+    Mirrors the ``coo_to_scv_tiles(cap=caps[-1])`` +
+    :func:`plan_from_tiles_bucketed` layout arithmetic without building the
+    plan: a logical tile with ``k`` entries chain-splits at the top cap —
+    ``k // caps[-1]`` full chunks occupy top-cap slot rows and the
+    remainder lands in the smallest cap holding it.  ``n_row_blocks``
+    (when given) adds one ``caps[0]`` slot row per output block row as the
+    first-segment coverage-dummy bound — an upper bound, since block rows
+    already covered by a first-segment tile need no dummy.
+
+    This is the number the byte model must price (``3 * slots * B`` for
+    the rows/cols/vals triple), not logical nnz.
+    """
+    caps_arr = np.asarray(sorted(int(c) for c in caps), dtype=np.int64)
+    if caps_arr.size == 0:
+        raise ValueError("caps must be non-empty")
+    counts_arr = np.asarray(counts, dtype=np.int64)
+    counts_arr = counts_arr[counts_arr > 0]
+    top = int(caps_arr[-1])
+    slots = int(n_row_blocks) * int(caps_arr[0])
+    if counts_arr.size == 0:
+        return slots
+    slots += int((counts_arr // top).sum()) * top
+    rem = counts_arr % top
+    rem = rem[rem > 0]
+    if rem.size:
+        slots += int(caps_arr[np.searchsorted(caps_arr, rem)].sum())
+    return slots
+
+
 def tile_nnz_histogram(a: COOMatrix, tile: int) -> np.ndarray:
     """Per-logical-tile entry counts — the input to ``bucket_caps_for``
     when deriving a ladder before tiles are built."""
@@ -95,6 +135,99 @@ def tile_nnz_histogram(a: COOMatrix, tile: int) -> np.ndarray:
     key = (a.rows // T).astype(np.int64) * nbc + (a.cols // T)
     _, counts = np.unique(key, return_counts=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Logical SCV (paper Fig. 1(d))
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SCVMatrix:
+    blk_ptr: np.ndarray  # int32[n_vectors+1] — start of each vector in vals
+    vec_row_blk: np.ndarray  # int32[n_vectors] — block-row of each vector
+    vec_col: np.ndarray  # int32[n_vectors] — matrix column of each vector
+    blk_id: np.ndarray  # int32[nnz] — row offset within vector (< B)
+    vals: np.ndarray  # f32[nnz]
+    vector_height: int  # B
+    order: str  # ROW_MAJOR (SCV) or ZMORTON (SCV-Z)
+    shape: tuple[int, int]
+
+    @property
+    def n_vectors(self) -> int:
+        return int(self.vec_col.shape[0])
+
+    @property
+    def nnz(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def index_bits_per_entry(self) -> int:
+        """log2(B) bits per entry — the storage advantage over COO's
+        log2(N) (§III-A)."""
+        return max(1, int(np.ceil(np.log2(self.vector_height))))
+
+    def to_coo(self) -> COOMatrix:
+        counts = np.diff(self.blk_ptr)
+        vrow = np.repeat(self.vec_row_blk, counts).astype(np.int64)
+        vcol = np.repeat(self.vec_col, counts).astype(np.int32)
+        rows = (vrow * self.vector_height + self.blk_id).astype(np.int32)
+        return COOMatrix(rows, vcol, self.vals.copy(), self.shape)
+
+
+def coo_to_scv(
+    a: COOMatrix,
+    vector_height: int,
+    order: str = ZMORTON,
+) -> SCVMatrix:
+    """Build SCV/SCV-Z from COO.
+
+    Vectors (non-empty column strips of height B) are enumerated either
+    row-major over the (block_row, column) grid — plain SCV, Fig. 2(d) —
+    or along a Z-Morton curve over B x B vector *groups* with column order
+    inside a group — SCV-Z, Fig. 2(e).
+    """
+    if order not in (ROW_MAJOR, ZMORTON):
+        raise ValueError(f"unknown order {order!r}")
+    B = int(vector_height)
+    if B <= 0:
+        raise ValueError("vector_height must be positive")
+    m, n = a.shape
+
+    row_blk = (a.rows // B).astype(np.int64)
+    blk_id = (a.rows % B).astype(np.int64)
+    col = a.cols.astype(np.int64)
+
+    if order == ROW_MAJOR:
+        # vectors ordered (block_row, col); entries within vector by row
+        vkey = row_blk * n + col
+        entry_key = vkey * B + blk_id
+    else:
+        # Z-curve over (block_row, col // B) groups, columns in order
+        # inside a group, rows in order inside a vector.
+        grp = morton.morton_encode(row_blk, col // B).astype(np.uint64)
+        # combined key: (zcurve group, local col, local row)
+        local_col = (col % B).astype(np.uint64)
+        entry_key = (grp * np.uint64(B) + local_col) * np.uint64(B) + blk_id.astype(
+            np.uint64
+        )
+        vkey = grp * np.uint64(B) + local_col  # unique per vector, curve order
+
+    eorder = np.argsort(entry_key, kind="stable")
+    vkey_s = np.asarray(vkey)[eorder]
+    uniq, start = np.unique(vkey_s, return_index=True)
+    counts = np.diff(np.append(start, len(vkey_s)))
+    blk_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+    first = eorder[start]  # one representative entry per vector
+    return SCVMatrix(
+        blk_ptr=blk_ptr,
+        vec_row_blk=row_blk[first].astype(np.int32),
+        vec_col=col[first].astype(np.int32),
+        blk_id=blk_id[eorder].astype(np.int32),
+        vals=a.vals[eorder],
+        vector_height=B,
+        order=order,
+        shape=a.shape,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.aggregate import aggregate_scv_plan
-from repro_torch.core.formats import COOMatrix
+from repro_torch.core.formats import COOMatrix, block_diag_coo
 from repro_torch.core.scv import (
     DEFAULT_TILE,
     SCVBucketedPlan,
@@ -290,6 +290,37 @@ class BatchedGraph:
 
     def to(self, device) -> "BatchedGraph":
         return dataclasses.replace(self, graph=self.graph.to(device))
+
+
+def build_batched_graph(
+    adjs: list[COOMatrix],
+    tile: int = DEFAULT_TILE,
+    backend_cap: Optional[int] = None,
+    pad_nodes: Optional[int] = None,
+    device="cuda",
+) -> BatchedGraph:
+    """Compose per-request adjacencies into one block-diagonal ``Graph`` on
+    ``device``: ``core.formats.block_diag_coo`` (padded with empty rows to
+    ``pad_nodes``), then :func:`build_graph` over the composite.  The
+    serving engine assembles the same composite from cached member plans
+    instead (``serve.graph_engine.assemble_batched_graph``)."""
+    for a in adjs:
+        if a.shape[0] != a.shape[1]:
+            raise ValueError(f"adjacency must be square, got {a.shape}")
+    n_real = int(sum(a.shape[0] for a in adjs))
+    pad_shape = None
+    if pad_nodes is not None:
+        if pad_nodes < n_real:
+            raise ValueError(f"pad_nodes={pad_nodes} < total nodes {n_real}")
+        pad_shape = (pad_nodes, pad_nodes)
+    comp, row_off, _ = block_diag_coo(adjs, pad_shape=pad_shape)
+    g = build_graph(comp, tile=tile, backend_cap=backend_cap, device=device)
+    return BatchedGraph(
+        graph=g,
+        node_offsets=row_off,
+        node_counts=np.diff(row_off),
+        n_real_nodes=n_real,
+    )
 
 
 def batch_features(bg: BatchedGraph, xs) -> torch.Tensor:

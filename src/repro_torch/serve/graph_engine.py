@@ -32,11 +32,15 @@ capacity segment.
   oversized batch reuses its placement.  A composite that holds an
   updated member has a new key, so it is assembled and placed again,
   never patched while placed.
+* **Autotuned layouts** — with ``GraphEngineConfig.autotune`` each graph
+  regime (quantized tile-nnz histogram x machine fingerprint) resolves its
+  own tile and ladder through ``tune.Autotuner`` on the engine's device;
+  waves group by resolved config, and member and composite keys carry it.
+  Only tile, ladder and cap reach the plan, as in the reference.
 
 The engine runs on ``device`` (default ``"cuda"``; it raises when no GPU
 is present, and the tests pass ``device="cpu"``); a placed composite's
-output device is the engine's.  Autotuned layouts come with a later
-slice of the port; :class:`GraphEngineConfig` refuses them.
+output device is the engine's.
 """
 from __future__ import annotations
 
@@ -77,7 +81,7 @@ from repro_torch.serve.scheduler import (
     _Control,
 )
 from repro_torch.stream import DeltaBatch, apply_coo, apply_delta, check_delta
-from repro_torch.tune.config import TunedConfig
+from repro_torch.tune import Autotuner, TuneStore, TunedConfig
 
 __all__ = [
     "AdmissionRejected",
@@ -136,13 +140,6 @@ class GraphRequest:
         return self.out
 
 
-#: GraphEngineConfig fields the port does not serve yet -> the slice that
-#: brings each (ROADMAP.md, "Modules to port").
-_LATER_SLICES = {
-    "autotune": "the simulator/tuner slice (tune/autotuner.py)",
-}
-
-
 @dataclasses.dataclass
 class GraphEngineConfig:
     max_batch_graphs: int = 16
@@ -153,6 +150,16 @@ class GraphEngineConfig:
     # every member plan, so composites fuse segment by segment.  The empty
     # tuple selects single-cap plans at ``cap``.
     bucket_caps: tuple[int, ...] = DEFAULT_LADDER
+    # per-regime plan configuration (tune.Autotuner): each graph regime
+    # (quantized tile-nnz histogram x machine fingerprint) resolves its own
+    # tile and ladder instead of the literals above, which stay the
+    # fallback for empty graphs.  Waves group by resolved config; member
+    # and composite keys carry it.  A store hit costs one O(nnz) histogram
+    # per request per wave; a miss runs the stage-1 simulator sweep, and
+    # with autotune_calibrate the kernel chain timed on the engine's device
+    autotune: bool = False
+    autotune_store: Optional[str] = None  # TuneStore path (None = in-memory)
+    autotune_calibrate: bool = False
     node_buckets: tuple[int, ...] = (256, 512, 1024, 2048, 4096)
     cache_entries: int = 256
     cache_bytes: int = 256 << 20
@@ -178,16 +185,8 @@ class GraphEngineConfig:
     # disables a trigger, and both None keep every wave on one device
     shard_nodes_threshold: Optional[int] = None
     shard_nnz_threshold: Optional[int] = None
-    # --- options of the reference that later slices of the port bring ---
-    autotune: bool = False
 
     def __post_init__(self):
-        for field, slice_name in _LATER_SLICES.items():
-            if getattr(self, field) not in (None, False):
-                raise ValueError(
-                    f"{field} is not in the PyTorch port yet; it comes with "
-                    f"{slice_name}"
-                )
         for field in ("max_batch_graphs", "max_batch_nodes", "tile", "cap"):
             if getattr(self, field) <= 0:
                 raise ValueError(f"{field} must be positive")
@@ -440,6 +439,9 @@ class _TrackedGraph:
     adj: COOMatrix
     key: str
     updates_since_anchor: int = 0  # see GraphEngineConfig.anchor_every
+    # resolved plan configuration, as of registration or the last anchor
+    # (deltas in between may drift the regime); metrics() reports it
+    config: Optional[TunedConfig] = None
 
 
 class GraphServeEngine:
@@ -503,11 +505,21 @@ class GraphServeEngine:
         self.update_seconds = 0.0
         self.assemble_seconds = 0.0
         self.copy_seconds = 0.0
-        # the plan layout of every wave (per-graph tuned layouts come with
-        # the autotune slice)
-        self.layout = TunedConfig(
+        # the engine-config literals as one TunedConfig: every wave's
+        # layout, or under cfg.autotune the layout of empty graphs only
+        self._fallback_config = TunedConfig(
             tile=cfg.tile, bucket_caps=tuple(cfg.bucket_caps), cap=cfg.cap
         )
+        self.tuner: Optional[Autotuner] = None
+        if cfg.autotune:
+            self.tuner = Autotuner(
+                store=TuneStore(cfg.autotune_store),
+                calibrate=cfg.autotune_calibrate,
+                device=self.device,
+            )
+        self._resolved_configs: dict[str, TunedConfig] = {}
+        # submit-side registration and the wave consumer both resolve
+        self._tune_lock = threading.Lock()
 
     def submit(
         self,
@@ -530,7 +542,9 @@ class GraphServeEngine:
             if req.graph_id is not None:
                 # (re)register: adj + graph_id resets the tracked state
                 self._graphs[req.graph_id] = _TrackedGraph(
-                    adj=req.adj, key=self._member_content_key(req.adj)
+                    adj=req.adj,
+                    key=self._member_content_key(req.adj),
+                    config=self._resolve_config(req.adj),
                 )
         elif req.graph_id is None:
             raise ValueError("request needs adj (or a tracked graph_id)")
@@ -574,9 +588,20 @@ class GraphServeEngine:
             )
         return st
 
+    def _resolve_config(self, adj: COOMatrix) -> TunedConfig:
+        """The plan configuration a wave uses for ``adj``: the tuner's
+        resolution for its regime under ``cfg.autotune``, else the
+        engine-config fallback.  A store hit costs one tile-nnz histogram."""
+        if self.tuner is None or adj.nnz == 0:
+            return self._fallback_config
+        with self._tune_lock:
+            tcfg = self.tuner.tune(adj)
+            self._resolved_configs[self.tuner.last_result.key] = tcfg
+        return tcfg
+
     def _member_content_key(self, adj: COOMatrix) -> str:
-        layout = self.layout
-        return coo_content_key(adj, tile=layout.tile, cap=layout.cap_signature)
+        tcfg = self._resolve_config(adj)
+        return coo_content_key(adj, tile=tcfg.tile, cap=tcfg.cap_signature)
 
     def _resolve_adj(self, req: GraphRequest) -> COOMatrix:
         """The adjacency a wave serves for ``req``: the tracked graph's
@@ -634,6 +659,7 @@ class GraphServeEngine:
         st.updates_since_anchor += 1
         if self.cfg.anchor_every and st.updates_since_anchor >= self.cfg.anchor_every:
             st.key = self.plan_cache.anchor(st.key, self._member_content_key(st.adj))
+            st.config = self._resolve_config(st.adj)
             st.updates_since_anchor = 0
         self.update_seconds += time.perf_counter() - t0
         return st.key
@@ -679,7 +705,9 @@ class GraphServeEngine:
         at wave time with its current adjacency, so a wave after an update
         can never hit a composite from before it."""
         adjs = [self._resolve_adj(r) for r in batch]
-        tcfg = self.layout
+        # the scheduler grouped the wave by resolved config, so the head's
+        # is every member's
+        tcfg = self._resolve_config(adjs[0])
         T = tcfg.tile
         _, mcfg = self.models[batch[0].model]
         with_edges = mcfg.kind == "gat"
@@ -856,4 +884,18 @@ class GraphServeEngine:
             "plan_cache_entries": s.entries,
             "plan_cache_hit_rate": s.hit_rate,
             "plan_build_seconds": s.build_seconds,
+            # per regime (key = histogram signature x machine fingerprint)
+            # the resolved config, and per tracked graph its config as of
+            # its registration or last anchor
+            "autotune_enabled": self.tuner is not None,
+            "autotune_searches": self.tuner.searches if self.tuner else 0,
+            "autotune_cache_hits": self.tuner.cache_hits if self.tuner else 0,
+            "resolved_configs": {
+                k: c.to_json() for k, c in self._resolved_configs.items()
+            },
+            "tracked_graph_configs": {
+                gid: st.config.to_json()
+                for gid, st in self._graphs.items()
+                if st.config is not None
+            },
         }

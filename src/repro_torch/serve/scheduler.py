@@ -19,8 +19,9 @@ everything between ``submit()`` and the forward launch:
   the producer — backpressure instead of unbounded memory growth.
 
 * **Wave formation with mid-flight coalescing** — a wave is a set of
-  compatible requests (same model, within the graph/node budgets — the
-  same compatibility rule the sync path always used).  Unlike the sync snapshot, a *forming* wave keeps
+  compatible requests (same model, same resolved ``TunedConfig`` group,
+  within the graph/node budgets — the same compatibility rule the sync
+  path always used).  Unlike the sync snapshot, a *forming* wave keeps
   absorbing compatible arrivals until it reaches
   ``target_wave_size`` graphs or ``max_wave_delay_ms`` has elapsed since
   its first member arrived.  The absorb window overlaps the previous
@@ -319,15 +320,15 @@ class Scheduler:
         self, items: list["GraphRequest"]
     ) -> tuple[list["GraphRequest"], list["GraphRequest"]]:
         """Greedy in-arrival-order pack over ``items`` — the sync path's
-        historical rule, verbatim: same model kind, bounded graph and node
-        counts; an isolated head is served alone; the head is always
-        admitted.  (The reference also groups by autotuned plan config;
-        the port has one engine layout until its autotune slice.)"""
+        historical rule, verbatim: same model kind, same resolved plan
+        config (under autotune), bounded graph and node counts; an
+        isolated head is served alone; the head is always admitted."""
         eng = self.engine
         head = items[0]
         if head.isolate:
             return [head], items[1:]
-        T = eng.layout.tile
+        head_cfg = eng._resolve_config(eng._resolve_adj(head))
+        T = head_cfg.tile
         batch: list[GraphRequest] = []
         nodes = 0
         remaining = []
@@ -337,6 +338,8 @@ class Scheduler:
                 and r.model == head.model
                 and len(batch) < eng.cfg.max_batch_graphs
             )
+            if fits and eng.tuner is not None:
+                fits = eng._resolve_config(eng._resolve_adj(r)) == head_cfg
             if fits:
                 aligned = -(-eng._resolve_adj(r).shape[0] // T) * T
                 fits = not batch or nodes + aligned <= eng.cfg.max_batch_nodes
@@ -574,11 +577,12 @@ class Scheduler:
     # -- introspection -----------------------------------------------------
     def queue_depth_by_group(self) -> dict[str, int]:
         """Queued requests per (model, padding-bucket) group — the
-        coalescing granularity, at the engine's plan tile."""
+        coalescing granularity.  Buckets use the engine's fallback tile
+        (per-request autotune resolution would make metrics() O(nnz))."""
         from repro_torch.serve.graph_engine import _bucket_nodes
 
         eng = self.engine
-        T = eng.layout.tile
+        T = eng._fallback_config.tile
         out: dict[str, int] = {}
         for r in self.queue.items():
             aligned = -(-eng._resolve_adj(r).shape[0] // T) * T

@@ -1,10 +1,14 @@
 """Synthetic graphs matching the paper's Table I statistics.
 
-Port of the generator half of ``src/repro/simul/datasets.py``: the
-Table I specs, the Chung-Lu power-law generator and GCN normalization,
-host-side numpy as in the reference.  A full-graph run at a dataset's
-scale calls ``powerlaw_graph(spec.nodes, spec.edges, seed=...)`` and
-``gcn_normalize`` directly, so the graph is the same in every process.
+Port of ``src/repro/simul/datasets.py``: the Table I specs, the
+Chung-Lu power-law generator, GCN normalization and :func:`load`, host
+numpy as in the reference.  Nothing is downloaded: :func:`load` generates
+a graph with a dataset's node and edge counts, scaled down to
+``max_edges``.  Its seed mixes in ``hash(name)``, which Python salts per
+process, so it gives the reference's graph within one process only.  A
+full-graph run at a dataset's scale calls ``powerlaw_graph(spec.nodes,
+spec.edges, seed=...)`` and ``gcn_normalize`` directly, so the graph is
+the same in every process.
 """
 from __future__ import annotations
 
@@ -37,6 +41,14 @@ TABLE_I: dict[str, DatasetSpec] = {
     "cobuy_computer": DatasetSpec("cobuy_computer", 13_752, 491_722, 767, "highly"),
     "cobuy_photo": DatasetSpec("cobuy_photo", 7_650, 238_163, 745, "highly"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphData:
+    spec: DatasetSpec
+    adj: COOMatrix  # weighted normalized adjacency (with self loops)
+    feature_size: int
+    scale: float  # nodes/edges scale factor applied vs Table I
 
 
 def powerlaw_graph(
@@ -100,3 +112,25 @@ def gcn_normalize(a: COOMatrix) -> COOMatrix:
     dinv = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
     w = (dinv[rows] * vals * dinv[cols]).astype(np.float32)
     return COOMatrix(rows, cols, w, (n, n))
+
+
+def load(
+    name: str,
+    max_edges: int = 2_000_000,
+    normalize: bool = True,
+    seed: int = 0,
+) -> GraphData:
+    spec = TABLE_I[name]
+    scale = min(1.0, max_edges / spec.edges)
+    n = max(64, int(spec.nodes * scale))
+    m = max(256, int(spec.edges * scale))
+    adj = powerlaw_graph(n, m, seed=seed + hash(name) % 2**16)
+    if normalize:
+        adj = gcn_normalize(adj)
+    return GraphData(spec=spec, adj=adj, feature_size=spec.feature_size, scale=scale)
+
+
+def dataset_names(category: str | None = None) -> list[str]:
+    return [
+        k for k, v in TABLE_I.items() if category is None or v.category == category
+    ]

@@ -1,9 +1,13 @@
-"""TunedConfig — the frozen plan-configuration record.
+"""TunedConfig — the frozen plan-configuration record the autotuner emits.
 
-Port of ``src/repro/tune/config.py``.  The serving engine resolves its
-fallback plan layout through it; the autotuner that emits tuned configs
-is a later slice of the port.  This module and ``core/scv.py`` are the
-only two places allowed to define tile/cap/chunk/ladder values.
+Port of ``src/repro/tune/config.py`` (the same JSON).  The serving engine
+builds its fallback layout from its own config fields and, under
+``autotune``, takes one per graph regime from ``tune.Autotuner``.  A
+config reaches a built plan through ``tile``, ``bucket_caps`` and ``cap``
+only: ``chunk`` and ``dense_threshold_ratio`` are searched and scored by
+the tuner's stage 1, as in the reference, but no kernel reads them.  This
+module and ``core/scv.py`` are the only two places allowed to define
+tile/cap/chunk/ladder values.
 """
 from __future__ import annotations
 
@@ -74,3 +78,35 @@ class TunedConfig:
     def cap_signature(self) -> tuple[int, ...] | int:
         """What plan caches salt on: the ladder, or the single cap."""
         return self.bucket_caps if self.bucket_caps else self.cap
+
+    def dense_tile_threshold(self) -> int:
+        """nnz above which stage 1 prices a T x T tile as a dense matmul —
+        the tuned analogue of :func:`core.scv.dense_tile_threshold`.  Like
+        the reference's engine, the port's plans keep
+        ``dense_tile_threshold(tile)``: this value is scored, not served."""
+        return int(self.tile * self.tile * self.dense_threshold_ratio)
+
+    @classmethod
+    def default(cls) -> "TunedConfig":
+        return cls()
+
+    def to_json(self) -> dict:
+        return {
+            "tile": self.tile,
+            "chunk": self.chunk,
+            "dense_threshold_ratio": self.dense_threshold_ratio,
+            "bucket_caps": list(self.bucket_caps),
+            "cap": self.cap,
+            "source": self.source,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "TunedConfig":
+        return cls(
+            tile=int(d["tile"]),
+            chunk=int(d["chunk"]),
+            dense_threshold_ratio=float(d["dense_threshold_ratio"]),
+            bucket_caps=tuple(int(c) for c in d["bucket_caps"]),
+            cap=int(d.get("cap", DEFAULT_CAP)),
+            source=str(d.get("source", "cache")),
+        )

@@ -5,8 +5,9 @@ block), the scalar body (over work units too, with its entries staged by
 asynchronous copies: split runs, accumulate mode, a cap and leaf storage
 that are not 16-byte aligned, an all-zero run), the shared-memory opt-in
 at T = 128, a refused launch, repeat launches giving the same bits,
-gradients through a CUDA forward, and plans placed on four slots of the
-card by the sharding executor.
+gradients through a CUDA forward, plans placed on four slots of the
+card by the sharding executor, the layouts the autotuner can pick (T =
+32 and one-rung ladders) and its stage 2 timing the kernel chain.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -534,3 +535,48 @@ def test_sharded_forward_on_card_carries_gradients(dev):
     want = torch.autograd.grad(gnn_loss(params, cfg, g, x, labels, mask), flat)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("graph", ["sparse", "dense-block"])
+@pytest.mark.parametrize("caps", [(8,), (8, 32), (8, 32, 128, 512)])
+@pytest.mark.parametrize("n_feat", [128, 40])
+def test_tile_32_bit_exact_on_integers(dev, graph, caps, n_feat):
+    """T = 32, a tile the tuner can pick: one-rung ladders chain-split
+    whole hub tiles into cap-8 pieces, and on the dense-block graph the
+    ladder reaching 512 puts every tile past T²/16 = 64 on the dense
+    branch."""
+    if graph == "sparse":
+        adj = gcn_normalize(powerlaw_graph(4000, 40_000, seed=9))
+    else:
+        adj = gcn_normalize(powerlaw_edges(1024, 150_000, seed=2))
+    plan = _ints(build_graph(adj, tile=32, bucket_caps=caps, with_edges=False,
+                             device=dev).plan, seed=len(caps))
+    z = torch.randint(-4, 5, (adj.shape[0], n_feat),
+                      generator=torch.Generator().manual_seed(n_feat)).float().to(dev)
+    kmod.reset_counts()
+    got = scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert kmod.launches == plan_launches(plan)
+    assert (kmod.dense_launches > 0) == (graph == "dense-block" and caps[-1] > 64)
+    assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z))
+
+
+def test_stage2_on_card_picks_the_measured_best(dev, tmp_path):
+    """The tuner's stage 2 on the card times the kernel chain (every
+    calibrated candidate launches it) and keeps the fastest."""
+    from repro_torch.tune import Autotuner, TuneStore
+    from repro_torch.tune.signature import device_tag
+
+    adj = gcn_normalize(powerlaw_graph(1 << 13, 60_000, seed=0))
+    tuner = Autotuner(device=dev, store=TuneStore(tmp_path / "tune.json"), top_k=2,
+                      calib_reps=2)
+    kmod.reset_counts()
+    cfg = tuner.tune(adj, n_features=32)
+    res = tuner.last_result
+    assert kmod.launches >= 3 * len(res.calibrated)  # warm-up + 2 reps each
+    assert cfg.source == "calibrated" and res.rank_correlation is not None
+    assert (64, (8, 32, 128)) in [(c.config.tile, c.config.bucket_caps) for c in res.calibrated]
+    best = min(res.calibrated, key=lambda c: c.measured_s)
+    assert (cfg.tile, cfg.bucket_caps) == (best.config.tile, best.config.bucket_caps)
+    assert res.key.endswith(device_tag(dev)) and device_tag(dev).startswith("torch-cuda-")
+

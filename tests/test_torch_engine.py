@@ -3,8 +3,8 @@ stream through both ``GraphServeEngine``s gives the same outputs (rtol =
 atol = 1e-5) and the same count of kernel launches — tracked graphs and
 their ``update()`` deltas included, between waves and under the async
 loop — ``debug_validate`` accepts good composites and raises on a corrupt
-member, and the port's engine refuses what later slices of the port
-bring.  Composites over a shard threshold are placed on a pool of CPU
+member, and under ``autotune`` both resolve the same config per graph
+regime and form the same waves, none mixing two configs.  Composites over a shard threshold are placed on a pool of CPU
 devices (``core.exec.PlanExecutor``) and served like the reference's
 single-device engine serves them (its own sharded path fails under the
 installed jax, ROADMAP §3), with the kernel wrapper called exactly as
@@ -27,7 +27,7 @@ from repro_torch.models import gnn as tgnn
 from repro_torch.serve import graph_engine as teng
 from repro_torch.serve.plan_cache import PlanCache, plan_nbytes
 from repro_torch.core.validate import PlanInvariantError
-from repro_torch.simul.datasets import gcn_normalize, powerlaw_graph
+from repro_torch.simul.datasets import gcn_normalize, powerlaw_edges, powerlaw_graph
 from repro_torch.stream import DeltaBatch, apply_coo
 
 ENGINE_KW = dict(max_batch_graphs=4, max_batch_nodes=1024, node_buckets=(512, 1024))
@@ -131,7 +131,6 @@ def test_submit_validates_requests():
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("autotune", True, "tuner"),
     # the sharding slice has come: only thresholds that are not positive
     ("shard_nodes_threshold", 0, "positive"),
     ("shard_nnz_threshold", -10, "positive"),
@@ -139,6 +138,23 @@ def test_submit_validates_requests():
 def test_config_refuses_later_slices(field, value, slice_name):
     with pytest.raises(ValueError, match=slice_name):
         teng.GraphEngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("calibrate", [False, True])
+def test_config_autotune_builds_an_engine_with_a_tuner(tmp_path, calibrate):
+    """The tuner slice has come: ``autotune=True`` is accepted and gives the
+    engine a tuner on its own device, on the store the config names."""
+    store = str(tmp_path / "tune.json")
+    _, te = _engines("gcn", port_cfg=dict(autotune=True, autotune_calibrate=calibrate,
+                                          autotune_store=store))
+    assert te.tuner is not None and te.tuner.device == te.device
+    assert te.tuner.calibrate is calibrate
+    assert str(te.tuner.store.path) == store
+    m = te.metrics()
+    assert m["autotune_enabled"] and m["autotune_searches"] == 0
+    assert m["resolved_configs"] == {} and m["tracked_graph_configs"] == {}
+    _, plain = _engines("gcn")
+    assert plain.tuner is None and not plain.metrics()["autotune_enabled"]
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -575,3 +591,104 @@ def test_sharding_needs_a_pool_beginning_at_the_engine_device():
     te.submit(teng.GraphRequest(rid=0, adj=a, x=np.ones((60, 8), np.float32), model="gcn"))
     te.run()
     assert te.metrics()["sharded_batches"] == 0 and te.metrics()["batches"] == 1
+
+
+# ---------------------------------------------------------------------------
+# autotuned layouts: per-regime configs, waves grouped by config
+# ---------------------------------------------------------------------------
+def _regime_pool():
+    """Small sparse graphs (T = 128, ladder (8,) and T = 64, (16,) under
+    the tuner) and two dense-block ones (T = 128, (128,))."""
+    return _pool() + [gcn_normalize(powerlaw_edges(512, 60_000, seed=0)),
+                      gcn_normalize(powerlaw_edges(256, 20_000, seed=1))]
+
+
+def _record_waves(engine):
+    waves = []
+    dispatch = engine._dispatch_wave
+
+    def record(wave):
+        waves.append([r.rid for r in wave])
+        return dispatch(wave)
+    engine._dispatch_wave = record
+    return waves
+
+
+@pytest.mark.parametrize("kind", ["gcn", "gat"])
+def test_autotune_engine_matches_reference_engine(kind):
+    pool = _regime_pool()
+    je, te = _engines(kind, autotune=True)
+    jwaves, twaves = _record_waves(je), _record_waves(te)
+    rng = np.random.default_rng(13)
+    adjs = {}
+    for rid in range(16):
+        a = pool[int(rng.integers(len(pool)))]
+        adjs[rid] = a
+        x = rng.standard_normal((a.shape[0], 8)).astype(np.float32)
+        _submit_both(je, te, rid, x, adj=a, model=kind)
+    _run_both(je, te)
+    assert twaves == jwaves and len(twaves) > 1
+    for wave in twaves:  # no wave mixes two resolved configs
+        assert len({te._resolve_config(adjs[rid]) for rid in wave}) == 1
+    jm, tm = je.metrics(), te.metrics()
+
+    def by_signature(m):
+        return {k.split("@")[0]: c for k, c in m["resolved_configs"].items()}
+    assert by_signature(tm) == by_signature(jm)
+    assert len({(c["tile"], tuple(c["bucket_caps"])) for c in tm["resolved_configs"].values()}) >= 3
+    for k in ("autotune_enabled", "autotune_searches", "launches", "waves", "batches"):
+        assert tm[k] == jm[k], k
+    assert tm["autotune_searches"] == len(tm["resolved_configs"])
+    assert all(k.endswith("-torch-cpu") for k in tm["resolved_configs"])
+
+
+def test_autotune_waves_group_by_config_under_async_loop():
+    pool = _regime_pool()
+    _, sync = _engines("gcn", autotune=True)
+    _, loop = _engines("gcn", autotune=True)
+    waves = _record_waves(loop)
+    rng = np.random.default_rng(14)
+    reqs = [(pool[int(rng.integers(len(pool)))], rid) for rid in range(12)]
+    xs = {rid: rng.standard_normal((a.shape[0], 8)).astype(np.float32) for a, rid in reqs}
+    for a, rid in reqs:
+        sync.submit(teng.GraphRequest(rid=rid, adj=a, x=xs[rid], model="gcn"))
+    want = {r.rid: r.out for r in sync.run()}
+    loop.start()
+    try:
+        live = [loop.submit(teng.GraphRequest(rid=rid, adj=a, x=xs[rid], model="gcn"))
+                for a, rid in reqs]
+        got = {r.rid: r.result(timeout=60) for r in live}
+    finally:
+        loop.stop(timeout=30)
+    for rid, out in want.items():
+        np.testing.assert_allclose(got[rid], out, rtol=1e-5, atol=1e-5)
+    adjs = {rid: a for a, rid in reqs}
+    for wave in waves:
+        assert len({loop._resolve_config(adjs[rid]) for rid in wave}) == 1
+
+
+def test_tracked_graph_keeps_its_resolved_config():
+    """A tracked graph gets its regime's config at registration, keeps it
+    across a value delta, and is resolved again at its anchor."""
+    dense, sparse = _regime_pool()[5], _pool()[1]
+    je, te = _engines("gcn", autotune=True, anchor_every=2)
+    x = np.ones((dense.shape[0], 8), np.float32)
+    _submit_both(je, te, 0, x, adj=dense, graph_id="d")
+    _submit_both(je, te, 1, np.ones((sparse.shape[0], 8), np.float32), adj=sparse)
+    _run_both(je, te)
+    want = te._resolve_config(dense)
+    assert want != te._resolve_config(sparse)
+    assert te.metrics()["tracked_graph_configs"] == {"d": want.to_json()}
+    assert je.metrics()["tracked_graph_configs"] == {"d": want.to_json()}
+    rng = np.random.default_rng(15)
+    for step in range(3):  # value updates: the regime stays
+        d = _mixed_delta(rng, te.tracked_adj("d"), 6, 0, 0)
+        assert te.update("d", d) == je.update("d", _jdelta(d))
+        _submit_both(je, te, 10 + step, x, graph_id="d")
+        _run_both(je, te)
+        assert te.metrics()["tracked_graph_configs"]["d"] == want.to_json()
+        assert te._graphs["d"].config == want
+    m = te.metrics()
+    assert m["plan_cache_anchored"] == je.metrics()["plan_cache_anchored"] == 1
+    assert m["graph_updates"] == m["plan_cache_revalidated"] == 3
+

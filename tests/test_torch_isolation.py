@@ -46,7 +46,10 @@ def test_port_has_modules():
             "repro_torch.serve.graph_engine", "repro_torch.launch.graph_serve",
             "repro_torch.stream.delta", "repro_torch.core.validate",
             "repro_torch.core.exec", "repro_torch.core.partition", "repro_torch.core.dist",
-            "repro_torch.simul.machine", "repro_torch.tune.cost"} <= names
+            "repro_torch.simul.machine", "repro_torch.tune.cost",
+            "repro_torch.simul.memory", "repro_torch.simul.dataflows", "repro_torch.simul.sim",
+            "repro_torch.tune.signature", "repro_torch.tune.store",
+            "repro_torch.tune.autotuner"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],

@@ -126,3 +126,38 @@ def test_build_graph_argument_rules():
         tgnn.build_graph(ta, bucket_caps=(32, 8), device="cpu")
     g = tgnn.build_graph(ta, config=TunedConfig(bucket_caps=(), cap=16), device="cpu")
     assert g.plan.cap == 16
+
+
+@pytest.mark.parametrize("pad_nodes,backend_cap", [(None, None), (512, 32)])
+def test_build_batched_graph_matches_reference(pad_nodes, backend_cap, rng):
+    """The public composite builder on three graphs: the reference's plan
+    leaves and offsets, and its forward per request."""
+    pairs = [_pair(n, seed=30 + i) for i, n in enumerate([90, 150, 60])]
+    jb = jgnn.build_batched_graph([j for j, _ in pairs], tile=64, backend_cap=backend_cap,
+                                  pad_nodes=pad_nodes)
+    tb = tgnn.build_batched_graph([t for _, t in pairs], tile=64, backend_cap=backend_cap,
+                                  pad_nodes=pad_nodes, device="cpu")
+    np.testing.assert_array_equal(tb.node_offsets, jb.node_offsets)
+    np.testing.assert_array_equal(tb.node_counts, jb.node_counts)
+    assert (tb.n_real_nodes, tb.n_graphs, tb.graph.n_nodes) == (
+        jb.n_real_nodes, jb.n_graphs, jb.graph.n_nodes)
+    assert (tb.graph.plan.tile, tb.graph.plan.cap, tb.graph.plan.shape) == (
+        jb.graph.plan.tile, jb.graph.plan.cap, jb.graph.plan.shape)
+    for leaf in ("tile_row", "tile_col", "rows", "cols", "vals", "nnz_in_tile", "perm"):
+        np.testing.assert_array_equal(getattr(tb.graph.plan, leaf).numpy(),
+                                      np.asarray(getattr(jb.graph.plan, leaf)), err_msg=leaf)
+    jcfg, tcfg, jparams, tparams = _models("gcn")
+    xs = [rng.standard_normal((t.shape[0], 12)).astype(np.float32) for _, t in pairs]
+    jout = np.asarray(jgnn.gnn_forward(jparams, jcfg, jb.graph, jgnn.batch_features(jb, xs)))
+    got = tgnn.gnn_forward_batched(tparams, tcfg, tb, xs)
+    for g, s, c in zip(got, jb.node_offsets, jb.node_counts):
+        np.testing.assert_allclose(g, jout[s : s + c], rtol=1e-5, atol=1e-5)
+
+
+def test_build_batched_graph_refusals():
+    _, a = _pair(40, seed=5)
+    with pytest.raises(ValueError, match="pad_nodes"):
+        tgnn.build_batched_graph([a, a], pad_nodes=60, device="cpu")
+    rect = a.__class__(a.rows, a.cols, a.vals, (40, 41))
+    with pytest.raises(ValueError, match="square"):
+        tgnn.build_batched_graph([rect], device="cpu")
