@@ -107,8 +107,30 @@ Phases, each of which fails the run on error:
     plain forward, launches equal to the engine's, no wave mixing two
     resolved configs.
 
-Each of phases 4, 5, 8, 9, 10, 11, 12 and 13 sets the kernels' launch counts
-to 0 just before it drives its path and reads them just after.  The line before the last is a JSON
+14. The rest of ``core/`` and the captured forward.  (a) ``core.aggregate``
+    over every format against the SCV chain on the same values, bit for
+    bit on integer values and within 1e-5 on normalised ones: COO
+    (segsum), CSR, CSC (scatter), ``SCVMatrix``, ``SCVTiles`` and the
+    bucketed plan on the arxiv-scale graph at F = 128, each timed on
+    arrays already on the card beside the chain; BCSR (block 64) and dense
+    on 8,192/4M; the hybrid on both dense-block graphs, its split printed.
+    Every SCV format must launch the kernel.  (b) The forward captured in
+    a CUDA graph (``models.gnn.CapturedForward``) against the eager one,
+    bit for bit on integer plan values and features: the arxiv-scale GCN
+    (20 forwards each way on the host clock, the replay alone with
+    ``device_ms``), GCN, SAGE, GIN and GAT on two composites of one
+    padding bucket (first call, replay after the other's copy-in, replay
+    again); phase 4's burst twice through an engine that captures, which
+    must capture at most once per padding bucket, only once its queue is
+    empty, and nothing on the repeat, which it must replay whole, and
+    phase 4's open loop through such an engine, each with its kernel
+    launches equal to the engine's, in ten pairs of turns with the same
+    drives through the engine with its forward eager (measured only).  (c)
+    ``core.tracecheck.trace_check`` over the four kinds on the card must
+    be ok.
+
+Each of phases 4, 5, 8, 9, 10, 11, 12, 13 and 14 sets the kernels' launch
+counts to 0 just before it drives its path and reads them just after.  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -158,6 +180,10 @@ NARROW_FEATURES, NARROW_PARTS = 3, 8  # phase 12: feature slabs narrower than a 
 TUNE_FEATURES = 32  # phase 13: the reference autotune benchmark's width
 TUNE_TOP_K, TUNE_CALIB_REPS = 2, 2  # phase 13: the reference autotune benchmark's search
 TUNE_REPS = 20  # phase 13: device_ms reps of each chain's longer re-time
+CAPTURE_REPS = 20  # phase 14: forwards on the host clock, eager and captured
+SERVE_PAIRS = 10  # phase 14: serving pairs, captured and eager engines in turns
+SERVE_RATE = 400.0  # requests/s offered in phase 4's and phase 14's open loops
+SERVE_NODE_BUCKETS = (2048, 4096, 8192)  # launch/graph_serve.py's engine
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1196,6 +1222,439 @@ def tune_drive(arxiv_adj, arxiv, cfg, x, fwd_ms, pool, serve_gps, check_outputs,
                 dense_launches=kmod.dense_launches)
 
 
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def same_bucket_composites(pool, layout, with_edges: bool):
+    """Two composites of pool graphs (host) that fall in one padding
+    bucket (one capture key): the first two member sets found, three
+    graphs a set, then two, in a fixed order."""
+    import itertools
+
+    from repro_torch.models.gnn import build_graph, forward_key
+    from repro_torch.serve.graph_engine import _bucket_nodes, assemble_batched_graph
+
+    T = layout.tile
+    members = [build_graph(a, config=layout, with_edges=with_edges, device="cpu") for a in pool]
+    seen = {}
+    for k in (3, 2):
+        for combo in itertools.combinations(range(len(pool)), k):
+            gs = [members[i] for i in combo]
+            bucket = _bucket_nodes(sum(-(-g.n_nodes // T) * T for g in gs),
+                                   SERVE_NODE_BUCKETS, T)
+            bg = assemble_batched_graph(gs, T, bucket, with_edges=with_edges)
+            key = forward_key(bg.graph)
+            if key in seen:
+                return seen[key], bg
+            seen[key] = bg
+    raise RuntimeError("no two member sets of the pool share a padding bucket")
+
+
+def backends_drive(arxiv_adj, arxiv, dense_adj, f: int, dev, card: str) -> dict:
+    """Phase 14 (a): ``core.aggregate`` over every format against the SCV
+    chain on the same values: bit for bit on integers, within 1e-5 of the
+    largest magnitude on normalised values.  COO, CSR, CSC, ``SCVMatrix``,
+    ``SCVTiles`` and the bucketed plan at arxiv scale, timed on
+    device-resident arrays beside the chain; BCSR, dense and the hybrid on
+    the dense-block graphs.  Every SCV format must launch the kernel.
+    ``card`` (name and power limit) stands in every timing line."""
+    from repro_torch.core.aggregate import (
+        aggregate, aggregate_bcsr, aggregate_coo_scatter, aggregate_coo_segsum,
+        aggregate_dense, aggregate_hybrid, bcsr_device_arrays, csr_device_arrays,
+    )
+    from repro_torch.core.formats import COOMatrix, coo_to_bcsr, coo_to_csc, coo_to_csr
+    from repro_torch.core.scv import (
+        coo_to_scv, coo_to_scv_tiles, plan_from_tiles, scv_to_tiles, split_hybrid,
+    )
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    gen = torch.Generator().manual_seed(14)
+
+    def kinds(adj, plan):
+        """(label, COO, plan, Z) with integer values in -4..4 (the plan's
+        through its perm, so both hold the same values), then the
+        normalised ones with normal Z."""
+        ints = rng.integers(-4, 5, adj.nnz).astype(np.float32)
+        int_adj = COOMatrix(adj.rows, adj.cols, ints, adj.shape)
+        int_plan = plan.reweighted(torch.from_numpy(ints).to(dev))
+        z_int = torch.randint(-4, 5, (adj.shape[1], f), generator=gen).float().to(dev)
+        z = torch.randn((adj.shape[1], f), generator=gen).to(dev)
+        return (("integer", int_adj, int_plan, z_int), ("normalised", adj, plan, z))
+
+    def held(name, label, got, want):
+        if label == "integer":
+            check(torch.equal(got, want), f"{name} ({label}): not bit-exact with the SCV "
+                  f"chain (max err {(got - want).abs().max().item()})")
+            return 0.0
+        err, scale = rel_err(got, want)
+        check(err <= 1e-5 * scale, f"{name} ({label}): max err {err} > 1e-5 * {scale}")
+        return err / scale
+
+    def through_aggregate(name, fmt, label, z, want, scv: bool):
+        kmod.reset_counts()
+        got = aggregate(fmt, z)
+        sync(dev)
+        check((kmod.launches > 0) == scv, f"{name}: {kmod.launches} kernel launches")
+        return held(name, label, got, want)
+
+    out = dict(arxiv={}, dense={}, hybrid={})
+    n = arxiv_adj.shape[0]
+    for label, adj, plan, z in kinds(arxiv_adj, arxiv.plan):
+        want = scv_spmm_plan(plan, z)[:n]
+        csr, csc = coo_to_csr(adj), coo_to_csc(adj)
+        scv_matrix, tiles = coo_to_scv(adj, plan.tile), coo_to_scv_tiles(adj, plan.tile)
+        formats = (("COO (segsum)", adj, False), ("CSR", csr, False), ("CSC (scatter)", csc, False),
+                   ("SCVMatrix", scv_matrix, True), ("SCVTiles", tiles, True),
+                   ("bucketed plan", plan, True))
+        errs = {name: through_aggregate(name, fmt, label, z, want, scv)
+                for name, fmt, scv in formats}
+        print(f"[backends] arxiv F={f} {label}: every format through aggregate() "
+              + ("bit-exact with the SCV chain" if label == "integer" else
+                 "within 1e-5: " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+              + "; the SCV formats launched the kernel")
+        if label != "normalised":
+            continue
+        # the same work on arrays already on the card, timed
+        coo_d = [torch.from_numpy(a).to(dev) for a in (adj.rows, adj.cols, adj.vals)]
+        csr_d = csr_device_arrays(csr, dev)
+        csc_d = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            csc.row_id, np.repeat(np.arange(n, dtype=np.int32), np.diff(csc.col_ptr)), csc.vals)]
+        m_plan = plan_from_tiles(scv_to_tiles(scv_matrix), with_perm=False, device=dev)
+        t_plan = plan_from_tiles(tiles, with_perm=False, device=dev)
+        timed = {
+            "COO (segsum)": lambda: aggregate_coo_segsum(*coo_d, z, n),
+            "CSR": lambda: aggregate_coo_segsum(csr_d["rows"], csr_d["cols"], csr_d["vals"], z, n),
+            "CSC (scatter)": lambda: aggregate_coo_scatter(*csc_d, z, n),
+            "SCVMatrix": lambda: scv_spmm_plan(m_plan, z),
+            "SCVTiles": lambda: scv_spmm_plan(t_plan, z),
+            "bucketed plan": lambda: scv_spmm_plan(plan, z),
+        }
+        ms = {k: device_ms(fn, 10) for k, fn in timed.items()}
+        chain = ms["bucketed plan"]
+        out["arxiv"] = dict(ms=ms, chain_ms=chain, single_cap=(m_plan.cap, t_plan.cap))
+        print(f"[backends] arxiv F={f}, arrays on the card, device_ms (x the SCV chain "
+              f"{chain:.4f} ms): " + ", ".join(f"{k} {v:.4f} ({v / chain:.2f}x)"
+                                               for k, v in ms.items())
+              + f"; SCVMatrix/SCVTiles single-cap plans at cap {m_plan.cap}/{t_plan.cap} "
+              f"({card})")
+        del coo_d, csr_d, csc_d, m_plan, t_plan
+
+    for name, (adj, g) in dense_adj.items():
+        nd = adj.shape[0]
+        bcsr_here = nd == MIXED_DENSE[0]
+        for label, kadj, plan, z in kinds(adj, g.plan):
+            want = scv_spmm_plan(plan, z)[:nd]
+            tiles = coo_to_scv_tiles(kadj, plan.tile)
+            sparse, dense = split_hybrid(tiles)
+            kmod.reset_counts()
+            got = aggregate_hybrid(tiles, z)
+            sync(dev)
+            check(kmod.launches > 0, f"hybrid {name}: the sparse part launched no kernel")
+            err = held(f"hybrid {name}", label, got, want)
+            out["hybrid"][name] = dict(sparse_tiles=sparse.n_tiles, dense_tiles=dense.n_tiles,
+                                       nnz_sparse=sparse.nnz, nnz=tiles.nnz)
+            print(f"[backends] hybrid {name} {label}: split {sparse.n_tiles} sparse tiles "
+                  f"({sparse.nnz} entries) + {dense.n_tiles} dense {plan.tile}x{plan.tile} "
+                  f"blocks of {tiles.n_tiles} tiles ({tiles.nnz} entries); "
+                  + ("bit-exact" if label == "integer" else f"rel err {err:.1e}"))
+            if not bcsr_here:
+                continue
+            bcsr = coo_to_bcsr(kadj, plan.tile)
+            dense_m = torch.from_numpy(kadj.to_dense()).to(dev)
+            e_b = through_aggregate("BCSR", bcsr, label, z, want, False)
+            e_d = through_aggregate("dense", dense_m, label, z, want, False)
+            print(f"[backends] {name} {label}: BCSR ({bcsr.n_blocks} blocks of {plan.tile}) "
+                  f"and dense through aggregate() "
+                  + ("bit-exact with the SCV chain" if label == "integer"
+                     else f"within 1e-5 ({e_b:.1e}, {e_d:.1e})"))
+            if label == "normalised":
+                arr = bcsr_device_arrays(bcsr, dev)
+                ms = dict(BCSR=device_ms(lambda: aggregate_bcsr(bcsr, z, arrays=arr), 10),
+                          dense=device_ms(lambda: aggregate_dense(dense_m, z), 10),
+                          chain=device_ms(lambda: scv_spmm_plan(plan, z), 10))
+                out["dense"][name] = dict(ms=ms, n_blocks=bcsr.n_blocks)
+                print(f"[backends] {name} F={f}, arrays on the card, device_ms: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                      + f" (BCSR/chain {ms['BCSR'] / ms['chain']:.2f}x, dense/chain "
+                      f"{ms['dense'] / ms['chain']:.2f}x; {card})")
+                del arr
+            del bcsr, dense_m
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def capture_drive(arxiv, cfg, pool, layout, check_outputs, dev, card: str) -> dict:
+    """Phase 14 (b) and (c): the forward captured in a CUDA graph against
+    the eager one, bit for bit on integer plan values and features: the
+    arxiv-scale GCN (timed both ways, 20 forwards on the host clock, the
+    replay alone with device_ms), the four kinds on two serving composites
+    of one padding bucket; phase 4's burst twice and its open loop, through
+    engines that capture and engines with the forward eager, in
+    ``SERVE_PAIRS`` pairs of turns; then ``trace_check`` over the four kinds
+    on the card.
+    ``card`` (name and power limit) stands in every timing line."""
+    from repro_torch.core.tracecheck import trace_check
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    from repro_torch.launch.graph_serve import (
+        build_default_engine, make_requests, poisson_arrivals, run_open_loop,
+    )
+    from repro_torch.models.gnn import (
+        CapturedForward, GNNConfig, forward_key, gnn_forward, init_gnn,
+    )
+    from repro_torch.serve.graph_engine import plan_launches
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(15)
+    out = {}
+
+    # the arxiv-scale forward, eager against captured
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    g_int = dataclasses.replace(arxiv, plan=perm_int_plan(arxiv.plan))
+    x_int = torch.randint(-4, 5, (arxiv.n_nodes, cfg.d_in), generator=gen).float().to(dev)
+    per_forward = plan_launches(arxiv.plan) * cfg.n_layers
+    fwd = CapturedForward()
+    kmod.reset_counts()
+    t0 = time.perf_counter()
+    first = fwd(params, cfg, g_int, x_int)  # eager, then captured
+    sync(dev)
+    t_capture = time.perf_counter() - t0
+    with torch.inference_mode():
+        eager = gnn_forward(params, cfg, g_int, x_int)
+        replayed = fwd(params, cfg, g_int, x_int)
+        sync(dev)
+        check(torch.equal(first, eager) and torch.equal(replayed, eager),
+              "arxiv: the captured forward is not bit-exact with the eager one on integers")
+        check(kmod.launches == 3 * per_forward,
+              f"arxiv: {kmod.launches} launches over 3 forwards of {per_forward}")
+        x = torch.randn((arxiv.n_nodes, cfg.d_in), generator=gen).to(dev)
+        eager_n, captured_n = gnn_forward(params, cfg, arxiv, x), fwd(params, cfg, arxiv, x)
+        sync(dev)
+        err, scale = rel_err(captured_n, eager_n)
+        check(err <= 1e-5 * max(1.0, scale), f"arxiv normalised: captured off eager by {err}")
+        same_bits = bool(torch.equal(captured_n, eager_n))
+        times = {}
+        for label, fn in (("eager", lambda: gnn_forward(params, cfg, arxiv, x)),
+                          ("captured", lambda: fwd(params, cfg, arxiv, x))):
+            fn()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(CAPTURE_REPS):
+                fn()
+            sync(dev)
+            times[label] = (time.perf_counter() - t0) * 1e3 / CAPTURE_REPS
+        entry = next(iter(fwd._entries.values()))  # None off the card (no capture)
+        replay_ms = device_ms(entry.graph.replay, CAPTURE_REPS) if entry else float("nan")
+        eager_dev_ms = device_ms(lambda: gnn_forward(params, cfg, arxiv, x), CAPTURE_REPS)
+        w0, w1 = params["layer0"]["w"], params["layer1"]["w"]
+        h1 = torch.relu(eager_n.new_empty((arxiv.n_nodes, cfg.d_hidden)).normal_())
+        comb_ms = device_ms(lambda: (x @ w0, h1 @ w1), CAPTURE_REPS)
+    pads = [(s.runs.n_units, s.n_tiles) for s in entry.g.plan.segments] if entry else []
+    out["arxiv"] = dict(eager_ms=times["eager"], captured_ms=times["captured"],
+                        replay_device_ms=replay_ms, eager_device_ms=eager_dev_ms,
+                        combination_ms=comb_ms, capture_s=t_capture, same_bits=same_bits,
+                        padded_units=pads)
+    print(f"[capture] arxiv 2-layer gcn-paper forward: eager {times['eager']:.3f} ms, "
+          f"captured {times['captured']:.3f} ms per forward (host clock, {CAPTURE_REPS} "
+          f"forwards); the replay alone {replay_ms:.4f} ms, the eager forward alone "
+          f"{eager_dev_ms:.4f} ms (device_ms); both combinations h @ W {comb_ms:.4f} ms; "
+          f"first call (eager + capture) {1e3 * t_capture:.1f} ms; integer inputs bit-exact, "
+          f"normalised {'bit-exact' if same_bits else f'max err {err:.2e}'}; padded grid "
+          f"(units, tiles) per segment {pads}; {kmod.launches} launches ({card})")
+    del fwd, entry, first, eager, replayed, g_int, x_int
+
+    # the four kinds on two composites of one padding bucket
+    kinds = {}
+    for kind in ("gcn", "sage", "gin", "gat"):
+        kcfg = GNNConfig(name=kind, kind=kind, d_in=cfg.d_in, d_hidden=cfg.d_hidden,
+                         n_classes=cfg.n_classes, n_layers=cfg.n_layers)
+        kparams = init_gnn(torch.Generator().manual_seed(0), kcfg, device=dev)
+        if kind == "gat":
+            # uniform attention: the softmax sums (index_add_, atomics in no
+            # fixed order) add ones, exact in any order
+            bit_params = {layer: {k: torch.zeros_like(v) if k.startswith("a_") else v
+                                  for k, v in ps.items()} for layer, ps in kparams.items()}
+        else:
+            bit_params = kparams
+        pair = same_bucket_composites(pool, layout, with_edges=kind == "gat")
+        graphs = [bg.graph.to(dev) for bg in pair]
+        graphs = [dataclasses.replace(g, plan=with_integer_vals(g.plan, gen, dev)) for g in graphs]
+        xs = [torch.randint(-4, 5, (g.n_nodes, kcfg.d_in), generator=gen).float().to(dev)
+              for g in graphs]
+        check(forward_key(bit_params, kcfg, graphs[0], xs[0])
+              == forward_key(bit_params, kcfg, graphs[1], xs[1]), f"{kind}: two keys")
+        kfwd = CapturedForward()
+        with torch.inference_mode():
+            for i in (0, 1, 0):
+                kmod.reset_counts()
+                got = kfwd(bit_params, kcfg, graphs[i], xs[i])
+                sync(dev)
+                launched = kmod.launches
+                want = gnn_forward(bit_params, kcfg, graphs[i], xs[i])
+                check(launched == plan_launches(graphs[i].plan) * kcfg.n_layers,
+                      f"{kind}: {launched} launches in one forward")
+                check(torch.equal(got, want), f"{kind} composite {i}: captured != eager")
+            err = 0.0
+            if kind == "gat":  # seed-0 attention: within the atomics' rounding
+                got = kfwd(kparams, kcfg, graphs[1], xs[1])
+                err, scale = rel_err(got, gnn_forward(kparams, kcfg, graphs[1], xs[1]))
+                check(err <= 1e-5 * max(1.0, scale), f"gat attention: captured off by {err}")
+        check((kfwd.captures, kfwd.replays) == (1, 2 + (kind == "gat")),
+              f"{kind}: {kfwd.captures} captures, {kfwd.replays} replays")
+        kinds[kind] = dict(params=kparams, cfg=kcfg, graphs=graphs, xs=xs)
+        print(f"[capture] {kind} on two composites of one bucket ({graphs[0].n_nodes} nodes, "
+              f"tiles {[s.n_tiles for s in graphs[0].plan.segments]} and "
+              f"{[s.n_tiles for s in graphs[1].plan.segments]}): first call, replay after "
+              f"the other's copy-in, replay again: bit-exact with eager on integers"
+              + (f"; seed-0 attention within {err:.1e}" if kind == "gat" else ""))
+
+    # phase 4's burst twice, and its open loop, each through a fresh engine
+    # that captures, in SERVE_PAIRS pairs of turns with the same engine with
+    # its forward eager (captured first in even pairs, eager first in odd
+    # ones); outputs checked in the first pair, launches in every run
+    class EagerForward(CapturedForward):
+        def __call__(self, params, cfg, g, x):
+            return gnn_forward(params, cfg, g, x)
+
+    def engine_for(mode, buckets):
+        engine = build_default_engine(model=cfg, device=dev, seed=0)
+        if mode == "eager":
+            engine.forward = EagerForward()
+        dispatch = engine._dispatch_wave
+
+        def record(wave):
+            bg, o = dispatch(wave)
+            buckets.append(forward_key(bg.graph))
+            return bg, o
+        engine._dispatch_wave = record
+        return engine
+
+    def delta(m, before, launches):
+        return dict(waves=m["waves"] - before["waves"],
+                    **{k: m[f"forward_{k}"] - before[f"forward_{k}"]
+                       for k in ("captures", "replays", "deferred", "graphs", "copy_bytes",
+                                 "capture_seconds")},
+                    launches=launches)
+
+    def serve_twice(mode: str, checked: bool) -> list:
+        buckets = []
+        engine = engine_for(mode, buckets)
+        bursts = []
+        for burst in range(2):
+            reqs = make_requests(np.random.default_rng(2), pool, SERVE_REQUESTS, cfg.d_in)
+            for r in reqs:
+                engine.submit(r)
+            before, launches_before = engine.metrics(), kmod.launches
+            t0 = time.perf_counter()
+            engine.run()
+            wall = time.perf_counter() - t0
+            m = engine.metrics()
+            launches = kmod.launches - launches_before
+            check(launches == m["launches"] - before["launches"] > 0,
+                  f"{mode} burst {burst}: kernel launches {launches} != engine launches "
+                  f"{m['launches'] - before['launches']}")
+            check(all(r.done for r in reqs), f"{mode} burst {burst}: a request not served")
+            worst = check_outputs(engine, reqs, f"{mode} burst {burst}") if checked else None
+            bursts.append(dict(graphs_per_s=SERVE_REQUESTS / wall, wall=wall, worst=worst,
+                               p50_ms=float(np.median([r.latency_s for r in reqs])) * 1e3,
+                               **delta(m, before, launches)))
+        if mode == "captured":
+            distinct = len(set(buckets))
+            b0, b1 = bursts
+            card_graphs = dev.type == "cuda"  # on the CPU a key holds no graph
+            check(b0["captures"] <= distinct
+                  and b0["graphs"] == (b0["captures"] if card_graphs else 0)
+                  and b0["deferred"] == (b0["waves"] - b0["captures"] if card_graphs else 0)
+                  and b1["captures"] == b1["graphs"] == b1["deferred"] == 0
+                  and b1["replays"] == b1["waves"],
+                  f"captures {[b['captures'] for b in bursts]}, graphs "
+                  f"{[b['graphs'] for b in bursts]}, replays {[b['replays'] for b in bursts]} "
+                  f"for {distinct} padding buckets")
+            out["buckets"] = distinct
+        return bursts
+
+    def open_loop(mode: str, checked: bool) -> dict:
+        buckets = []
+        engine = engine_for(mode, buckets)
+        rng = np.random.default_rng(3)
+        reqs = make_requests(rng, pool, SERVE_REQUESTS, cfg.d_in)
+        arrivals = poisson_arrivals(rng, SERVE_REQUESTS, SERVE_RATE)
+        launches_before = kmod.launches
+        stats = run_open_loop(engine, reqs, arrivals, mode="async")
+        launches = kmod.launches - launches_before
+        m = engine.metrics()
+        check(stats["completed"] == SERVE_REQUESTS, f"{mode} open loop: {stats['completed']} served")
+        check(launches == m["launches"] > 0,
+              f"{mode} open loop: kernel launches {launches} != engine launches {m['launches']}")
+        if mode == "captured":
+            check(m["forward_graphs"] <= m["forward_captures"] <= len(set(buckets)),
+                  f"open loop: {m['forward_graphs']} graphs, {m['forward_captures']} keys for "
+                  f"{len(set(buckets))} padding buckets")
+        worst = check_outputs(engine, reqs, f"{mode} open loop") if checked else None
+        return dict(graphs_per_s=stats["graphs_per_s"], p50_ms=stats["p50_ms"],
+                    p99_ms=stats["p99_ms"], worst=worst,
+                    **delta(m, {k: 0 for k in m}, launches))
+
+    def line(label, mode, r):
+        return (f"[capture] {label}, {mode} engine: {r['graphs_per_s']:.1f} graphs/s, p50 "
+                f"{r['p50_ms']:.2f} ms, {r['waves']} waves, {r['captures']} keys, {r['graphs']} "
+                f"graphs captured, {r['replays']} replays, {r['deferred']} waves eager before "
+                f"their capture, {r['copy_bytes']} bytes copied in, captures "
+                f"{r['capture_seconds']:.3f} s, kernel launches {r['launches']} = engine "
+                f"launches" + ("" if r["worst"] is None else f", worst rel err {r['worst']:.2e}")
+                + f" ({card})")
+
+    runs = {"captured": [], "eager": []}
+    for pair in range(SERVE_PAIRS):
+        for mode in (("captured", "eager") if pair % 2 == 0 else ("eager", "captured")):
+            bursts = serve_twice(mode, checked=pair == 0)
+            ol = open_loop(mode, checked=pair == 0)
+            runs[mode].append(dict(first=bursts[0], repeated=bursts[1], open_loop=ol))
+            if pair == 0:
+                for label, r in (("burst", bursts[0]), ("repeated burst", bursts[1]),
+                                 (f"open loop at {SERVE_RATE:.0f}/s", ol)):
+                    print(line(label, mode, r))
+    out["bursts"] = [runs["captured"][0]["first"], runs["captured"][0]["repeated"]]
+    b0, b1 = out["bursts"]
+    print(f"[capture] the captured engine's bursts: {out['buckets']} padding buckets, {b0['graphs']} "
+          f"graphs captured after the first burst's last wave ({b0['capture_seconds']:.3f} s of "
+          f"its {b0['wall']:.3f} s), none in the repeat, which replayed all {b1['replays']} waves")
+    gps = {mode: {k: [r[k]["graphs_per_s"] for r in rs] for k in ("first", "repeated", "open_loop")}
+           for mode, rs in runs.items()}
+    p50 = {mode: [r["open_loop"]["p50_ms"] for r in rs] for mode, rs in runs.items()}
+
+    def listed(v):
+        return ", ".join(f"{x:.1f}" for x in v)
+    for k, label in (("first", "first burst"), ("repeated", "repeated burst"),
+                     ("open_loop", f"open loop at {SERVE_RATE:.0f}/s")):
+        c, e = gps["captured"][k], gps["eager"][k]
+        print(f"[capture] {label}, {SERVE_PAIRS} pairs in turns, graphs/s: captured median "
+              f"{np.median(c):.1f} [{listed(c)}], eager median {np.median(e):.1f} [{listed(e)}], "
+              f"captured faster in {sum(a > b for a, b in zip(c, e))} of {SERVE_PAIRS} pairs ({card})")
+    print(f"[capture] open loop at {SERVE_RATE:.0f}/s, p50 latency ms: captured median "
+          f"{np.median(p50['captured']):.2f} [{listed(p50['captured'])}], eager median "
+          f"{np.median(p50['eager']):.2f} [{listed(p50['eager'])}] ({card})")
+    out["turns"] = gps
+    out["open_loop_p50_ms"] = p50
+
+    # (c) trace_check over the four kinds' serving examples, on the card
+    report = trace_check(
+        {k: (v["params"], v["cfg"]) for k, v in kinds.items()},
+        {k: [(v["graphs"][0], v["xs"][0]), (v["graphs"][1], v["xs"][1]),
+             (v["graphs"][0], v["xs"][1])] for k, v in kinds.items()},
+    )
+    check(report.ok, f"trace_check: {report.summary()}")
+    print(f"[capture] trace_check over gcn, sage, gin, gat on the card: "
+          f"{report.summary().splitlines()[0]}; ok")
+    sync(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card only",
@@ -1416,10 +1875,12 @@ def main() -> int:
     print(f"[serve] burst of {SERVE_REQUESTS} through run(): {m['waves']} waves, "
           f"{SERVE_REQUESTS / wall:.1f} graphs/s, {latency_line(reqs)}, "
           f"plan builds {m['plan_build_seconds']:.3f} s of {wall:.3f} s, "
+          f"{m['forward_captures']} forward keys, {m['forward_graphs']} captured after the "
+          f"last wave in {m['forward_capture_seconds']:.3f} s, "
           f"kernel launches {serve_launches} "
           f"= engine launches {m['launches']}, worst rel err {worst:.2e}")
 
-    rate = 400.0
+    rate = SERVE_RATE
     engine2 = build_default_engine(**engine_kw)
     rng2 = np.random.default_rng(3)
     reqs2 = make_requests(rng2, pool, SERVE_REQUESTS, cfg.d_in)
@@ -1436,6 +1897,8 @@ def main() -> int:
           f"{stats['graphs_per_s']:.1f} graphs/s, {latency_line(reqs2)}, "
           f"{m2['waves']} waves, fill {m2['wave_fill']:.2f}, "
           f"plan builds {m2['plan_build_seconds']:.3f} s of {stats['elapsed_s']:.3f} s, "
+          f"{m2['forward_captures']} forward keys, {m2['forward_graphs']} captured while idle "
+          f"in {m2['forward_capture_seconds']:.3f} s, {m2['forward_replays']} replays, "
           f"kernel launches {async_launches} = engine launches {m2['launches']}, "
           f"worst rel err {worst2:.2e}")
 
@@ -1742,6 +2205,13 @@ def main() -> int:
           f"({stream['dense_launches']} dense), tracked serving {tracked['launches']}, "
           f"sharding executor {shard['launches']}, tuner, tuned forward and tuned "
           f"serving {tune['launches']}")
+
+    # -- 14. aggregation backends and the captured forward ----------------------
+    t14 = time.perf_counter()
+    backends = backends_drive(arxiv_adj, arxiv, dense_adj, cfg.d_hidden, dev, smi)
+    captured = capture_drive(arxiv, cfg, pool, layout, check_outputs, dev, smi)
+    print(f"[capture] phase 14: {time.perf_counter() - t14:.1f} s (backends "
+          f"{backends['seconds']:.1f} s, captured forward {captured['seconds']:.1f} s)")
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

@@ -16,9 +16,13 @@ Port of ``src/repro/core/scv.py``:
 * :class:`SCVBucketedPlan` — one ``SCVPlan`` segment per entry-capacity
   bucket; the kernel runs one launch per non-empty segment, chained
   through one output tensor.
+* :class:`DenseTiles` and :func:`split_hybrid` — the hybrid layout's
+  dense part (``core.aggregate.aggregate_hybrid``).
 
 Plans are dataclasses with tensor leaves and a ``.to(device)``; there is
-no pytree registration, because the port runs eagerly.
+no pytree registration.  ``tree_flatten`` gives the reference's split into
+leaves and static fields, which keys a captured forward
+(``models.gnn.CapturedForward``).
 """
 from __future__ import annotations
 
@@ -56,6 +60,9 @@ DEFAULT_TILE = 64
 DEFAULT_CAP = 64
 #: Default serving capacity ladder.
 DEFAULT_LADDER = (8, 32, 128)
+#: Smallest tile count a serving composite's segment is padded to (the
+#: counts go up in powers of two from here; an empty segment stays empty).
+MIN_TILE_BUCKET = 8
 
 
 def dense_tile_threshold(tile: int) -> int:
@@ -270,6 +277,25 @@ class SCVTiles:
         m, n = self.shape
         return (-(-m // T) * T, -(-n // T) * T)
 
+    @property
+    def padding_fraction(self) -> float:
+        tot = self.n_tiles * self.cap
+        return 1.0 - self.nnz / tot if tot else 0.0
+
+    def to_coo(self) -> COOMatrix:
+        """The real entries (slots below each tile's nnz) as COO, in slot
+        order."""
+        T = self.tile
+        rows = (self.tile_row[:, None].astype(np.int64) * T + self.rows).ravel()
+        cols = (self.tile_col[:, None].astype(np.int64) * T + self.cols).ravel()
+        keep = (np.arange(self.cap)[None, :] < self.nnz_in_tile[:, None]).ravel()
+        return COOMatrix(
+            rows[keep].astype(np.int32),
+            cols[keep].astype(np.int32),
+            self.vals.ravel()[keep],
+            self.shape,
+        )
+
 
 def _auto_cap(counts: np.ndarray, tile: int) -> int:
     """Per-tile entry capacity minimizing padded slots (multiples of 8)."""
@@ -382,6 +408,11 @@ def coo_to_scv_tiles(
         order=order,
         perm=perm_out.reshape(nt, cap),
     )
+
+
+def scv_to_tiles(a: SCVMatrix, cap: Optional[int] = None) -> SCVTiles:
+    """Logical SCV -> tile layout at T = the vector height, in its order."""
+    return coo_to_scv_tiles(a.to_coo(), a.vector_height, cap=cap, order=a.order)
 
 
 # ---------------------------------------------------------------------------
@@ -541,6 +572,66 @@ class RunIndex:
             unit_ptr=self.unit_ptr.to(device), order=self.order.to(device),
         )
 
+    @classmethod
+    def padded(cls, n_tiles: int, n_row_blocks: int, cap: int, device) -> "RunIndex":
+        """Unit tables sized from a segment's leaf shapes alone, for a
+        launch captured in a CUDA graph (``models.gnn.CapturedForward``):
+        the run index of any segment of ``n_tiles`` tiles of capacity
+        ``cap`` over ``n_row_blocks`` block-rows fits them, and
+        :meth:`load` copies it in.  The bounds, with ``W = n_tiles * (1 +
+        cap)`` the most work such a segment holds: at most ``min(n_tiles,
+        n_row_blocks)`` runs; two consecutive units of a split run hold
+        more than ``UNIT_WORK`` work together, so a run of work ``w`` has
+        fewer than ``2 w / UNIT_WORK + 1`` units, hence fewer than ``n_runs
+        + 2 W / UNIT_WORK`` units in all (and never more than tiles) and
+        fewer than ``3 W / UNIT_WORK`` in split runs.  ``max_nnz`` is the
+        cap, so a launch keeps room for the dense branch whenever a tile
+        of this shape could take it.  Units past the loaded ones have run
+        -1: the kernels return from them at once."""
+        n_runs = min(n_tiles, n_row_blocks)
+        work = n_tiles * (1 + cap)
+        n_units = min(n_tiles, n_runs + 2 * work // UNIT_WORK)
+        pad = np.zeros((n_units, 4), np.int32)
+        pad[:, 2:] = -1
+        return cls(
+            ptr=_tensor(np.zeros(n_runs + 1, np.int32), device),
+            rows=np.arange(n_runs, dtype=np.int32),
+            max_nnz=int(cap),
+            units=_tensor(pad, device),
+            unit_ptr=_tensor(np.zeros(n_runs + 1, np.int32), device),
+            order=_tensor(np.arange(n_units, dtype=np.int32), device),
+            unit_work=np.zeros(n_units, np.int64),
+            n_tiles=n_tiles,
+            n_split_units=min(n_units, 3 * work // UNIT_WORK),
+        )
+
+    def load(self, runs: "RunIndex") -> None:
+        """Copy ``runs`` into these padded tables (:meth:`padded`), in place
+        on the current stream: its units, then units of run -1 for the rest
+        of the grid, with the launch order pointing past ``runs``'s units at
+        one of them.  Raises if ``runs`` does not fit."""
+        if (runs.n_tiles != self.n_tiles or runs.n_units > self.n_units
+                or runs.n_runs > self.n_runs or runs.n_split_units > self.n_split_units):
+            raise ValueError(
+                f"run index of {runs.n_tiles} tiles, {runs.n_runs} runs, {runs.n_units} "
+                f"units ({runs.n_split_units} split) does not fit tables for "
+                f"{self.n_tiles} tiles, {self.n_runs} runs, {self.n_units} units "
+                f"({self.n_split_units} split)"
+            )
+        n, k = runs.n_units, runs.n_runs
+        self.units[:n].copy_(runs.units)
+        self.units[n:, 2].fill_(-1)
+        self.unit_ptr[: k + 1].copy_(runs.unit_ptr)
+        self.order[:n].copy_(runs.order)
+        self.order[n:].fill_(n)
+
+    def clear(self) -> None:
+        """Make every unit of these padded tables padding: a launch over
+        them writes nothing (a segment that the replayed plan leaves
+        empty)."""
+        self.units[:, 2].fill_(-1)
+        self.order.zero_()
+
 
 _LEAVES = ("tile_row", "tile_col", "rows", "cols", "vals", "nnz_in_tile", "perm")
 
@@ -594,6 +685,16 @@ class SCVPlan:
             for k in _LEAVES if getattr(self, k) is not None
         }
         return dataclasses.replace(self, **moved, runs=self.runs.to(device))
+
+    def tree_flatten(self):
+        """Leaves and static fields, split as the reference's pytree splits
+        them; ``runs`` is neither (the port's schedule index, derived from
+        the leaves' content, which a captured forward copies into tables
+        sized from the leaf shapes: :meth:`RunIndex.padded`)."""
+        return (
+            tuple(getattr(self, k) for k in _LEAVES),
+            (self.tile, self.cap, self.shape, self.order),
+        )
 
     def with_vals(self, vals) -> "SCVPlan":
         """Same plan, re-weighted entry values (GAT's per-edge attention)."""
@@ -759,6 +860,9 @@ class SCVBucketedPlan:
     def to(self, device) -> "SCVBucketedPlan":
         return SCVBucketedPlan(tuple(s.to(device) for s in self.segments))
 
+    def tree_flatten(self):
+        return (self.segments, ())
+
     def reweighted(self, edge_vals) -> "SCVBucketedPlan":
         return SCVBucketedPlan(
             tuple(s.reweighted(edge_vals) for s in self.segments)
@@ -796,4 +900,69 @@ def plan_from_tiles_bucketed(
             )
             for j, s in enumerate(segs)
         )
+    )
+
+
+# ---------------------------------------------------------------------------
+# hybrid dense-tile split
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DenseTiles:
+    """Logical tiles dense enough for a dense product (nnz > T^2 *
+    ``vpu_mxu_ratio``), densified."""
+
+    tile_row: np.ndarray  # int32[nd]
+    tile_col: np.ndarray  # int32[nd]
+    blocks: np.ndarray  # f32[nd, T, T]
+    tile: int
+    shape: tuple[int, int]
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tile_row.shape[0])
+
+
+def split_hybrid(
+    tiles: SCVTiles, vpu_mxu_ratio: float = MXU_VPU_RATIO
+) -> tuple[SCVTiles, DenseTiles]:
+    """Partition logical tiles (all chain pieces of one coordinate pair
+    together) by density: those with more than ``T^2 * vpu_mxu_ratio``
+    entries become dense ``T x T`` blocks, ordered by ``tile_row << 32 |
+    tile_col``; the rest keep the SCV layout, in schedule order.  The
+    default ratio is the reference's TPU constant, kept for parity."""
+    T = tiles.tile
+    key = tiles.tile_row.astype(np.int64) * (2**32) + tiles.tile_col
+    uniq, inv = np.unique(key, return_inverse=True)
+    tot = np.zeros(len(uniq), np.int64)
+    np.add.at(tot, inv, tiles.nnz_in_tile.astype(np.int64))
+    is_dense = (tot > (T * T) * vpu_mxu_ratio)[inv]
+
+    def subset(mask):
+        return SCVTiles(
+            tile_row=tiles.tile_row[mask],
+            tile_col=tiles.tile_col[mask],
+            rows=tiles.rows[mask],
+            cols=tiles.cols[mask],
+            vals=tiles.vals[mask],
+            nnz_in_tile=tiles.nnz_in_tile[mask],
+            tile=T,
+            cap=tiles.cap,
+            shape=tiles.shape,
+            order=tiles.order,
+            perm=tiles.perm[mask] if tiles.perm is not None else None,
+        )
+
+    sparse, dpart = subset(~is_dense), subset(is_dense)
+    dkey = dpart.tile_row.astype(np.int64) * (2**32) + dpart.tile_col
+    duniq, dinv = np.unique(dkey, return_inverse=True)
+    blocks = np.zeros((len(duniq), T, T), np.float32)
+    keep = np.arange(dpart.cap)[None, :] < dpart.nnz_in_tile[:, None]
+    ti = np.repeat(dinv, dpart.cap)[keep.ravel()]
+    np.add.at(blocks, (ti, dpart.rows[keep], dpart.cols[keep]), dpart.vals[keep])
+    return sparse, DenseTiles(
+        tile_row=(duniq >> 32).astype(np.int32),
+        tile_col=(duniq & 0xFFFFFFFF).astype(np.int32),
+        blocks=blocks,
+        tile=T,
+        shape=tiles.shape,
     )

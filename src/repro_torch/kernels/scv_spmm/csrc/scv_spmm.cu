@@ -56,7 +56,10 @@
 //     a header chunk the sparse tiles' entries are summed before the dense
 //     tiles', a fixed order.
 // Accumulate mode seeds the strip from `out` instead of zero, which is how a
-// chain of per-capacity-bucket launches sums into one output.
+// chain of per-capacity-bucket launches sums into one output.  A unit whose
+// run is -1 is padding (a launch captured in a CUDA graph has a grid sized
+// from the segment's shapes, core/scv.py::RunIndex.padded): both bodies
+// return from it before any other read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -356,6 +359,7 @@ scv_spmm_runs_kernel(const int32_t* __restrict__ tile_row,
 
   const int u = order[blockIdx.x];
   const int4 unit = units[u];  // first tile, end tile, run, scratch slot
+  if (unit.z < 0) return;  // a padding unit of a captured launch's grid
   const int first = unit_ptr[unit.z];
   const int count = unit_ptr[unit.z + 1] - first;
   const bool split = count > 1;
@@ -730,6 +734,7 @@ scv_spmm_runs_scalar_kernel(const int32_t* __restrict__ tile_row,
 
   const int u = order[blockIdx.x];
   const int4 unit = units[u];  // first tile, end tile, run, scratch slot
+  if (unit.z < 0) return;  // a padding unit of a captured launch's grid
   const int first = unit_ptr[unit.z];
   const int count = unit_ptr[unit.z + 1] - first;
   float* out_col = out + (int64_t)tile_row[unit.x] * tile * n_feat + f;

@@ -25,7 +25,8 @@ from repro_torch.kernels.scv_spmm.build import load_library
 
 #: Kernel launches since the counts were last set to 0.  Plain ints: each
 #: rises by one for each launch that the kernel accepted, and nowhere else
-#: (the CPU path and a refused launch add nothing).
+#: (the CPU path and a refused launch add nothing; a launch captured into a
+#: CUDA graph adds nothing until the graph replays it).
 #: ``launches`` counts the vector body (kernel table rows 1 and 2),
 #: ``dense_launches`` those of its launches in which a tile took the dense
 #: branch (row 3; they count in ``launches`` too), ``scalar_launches`` the
@@ -33,6 +34,12 @@ from repro_torch.kernels.scv_spmm.build import load_library
 launches = 0
 dense_launches = 0
 scalar_launches = 0
+#: Launches recorded into a CUDA graph being captured: ``(runs, body,
+#: dense_threshold)`` per launch, ``runs`` the launch's run index.  A
+#: captured launch runs only when the graph replays, so the counts rise
+#: then, by :func:`launch_counts` over the run index the replay loaded
+#: (:func:`add_counts`); the capturer takes its entries off this list.
+captured: list = []
 
 MAX_THREADS = 128  # feature columns per block; one thread per column
 SMEM_BYTES = 48 * 1024  # shared memory a block gets without opting in
@@ -49,6 +56,24 @@ def reset_counts() -> None:
     """Set every launch count to 0."""
     global launches, dense_launches, scalar_launches
     launches = dense_launches = scalar_launches = 0
+
+
+def launch_counts(body: str, dense_threshold: int, max_nnz: int) -> tuple[int, int, int]:
+    """``(launches, dense_launches, scalar_launches)`` that one launch adds:
+    a vector launch is dense when a tile of its run index (``max_nnz``, its
+    fullest tile) passes ``dense_threshold >= 0``."""
+    if body == "scalar":
+        return (0, 0, 1)
+    return (1, int(0 <= dense_threshold < max_nnz), 0)
+
+
+def add_counts(counts) -> None:
+    """Add ``(launches, dense_launches, scalar_launches)`` to the counts:
+    one launch's, or a replayed CUDA graph's (:func:`launch_counts`)."""
+    global launches, dense_launches, scalar_launches
+    launches += counts[0]
+    dense_launches += counts[1]
+    scalar_launches += counts[2]
 
 
 def smem_bytes(tile: int, threads: int, body: str = "vector", dense: bool = False) -> int:
@@ -120,22 +145,30 @@ def _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile
         )
     if out.shape[0] % tile:
         raise ValueError(f"out rows {out.shape[0]} not a multiple of tile {tile}")
+    check_runs(runs, nt, vals.shape[1], out.shape[0] // tile)
+
+
+def check_runs(runs, n_tiles: int, cap: int, n_row_blocks: int) -> None:
+    """The host checks of a segment's run index against its ``n_tiles``
+    tiles of capacity ``cap`` and an output of ``n_row_blocks`` strips;
+    every launch runs them, and a captured forward runs them on each plan
+    before copying its run index into the graph's tables."""
     n_runs = runs.rows.shape[0]
-    if runs.ptr.shape != (n_runs + 1,) or (nt > 0) != (n_runs > 0) or runs.n_tiles != nt:
+    if runs.ptr.shape != (n_runs + 1,) or (n_tiles > 0) != (n_runs > 0) or runs.n_tiles != n_tiles:
         raise ValueError(f"run index of {n_runs} runs over {runs.n_tiles} tiles does not fit "
-                         f"{nt} tiles")
+                         f"{n_tiles} tiles")
     n_units = runs.n_units
     if (runs.units.shape != (n_units, 4) or runs.unit_ptr.shape != (n_runs + 1,)
             or runs.order.shape != (n_units,) or n_units < n_runs
             or not 0 <= runs.n_split_units <= n_units):
         raise ValueError(f"unit index of {n_units} units does not fit {n_runs} runs")
-    if runs.max_nnz > vals.shape[1]:
-        raise ValueError(f"a tile holds {runs.max_nnz} entries, over the cap {vals.shape[1]}")
+    if runs.max_nnz > cap:
+        raise ValueError(f"a tile holds {runs.max_nnz} entries, over the cap {cap}")
     if n_runs:
         if np.unique(runs.rows).size != n_runs:
             # two blocks would own one output strip and race on it
             raise ValueError("a block-row appears in two runs of one segment")
-        if int(runs.rows.min()) < 0 or int(runs.rows.max()) >= out.shape[0] // tile:
+        if int(runs.rows.min()) < 0 or int(runs.rows.max()) >= n_row_blocks:
             raise ValueError("a run's block-row lies outside out")
 
 
@@ -167,7 +200,6 @@ def scv_spmm_runs(
     one block per (work unit, feature block) of ``runs``, and so does the
     scalar body.  Launches that share ``runs`` must be ordered on one
     stream: the split runs' counters are the run index's."""
-    global launches, dense_launches, scalar_launches
     if body not in BODIES:
         raise ValueError(f"unknown kernel body {body!r}")
     _check(tile_row, tile_col, nnz_in_tile, rows, cols, vals, z, out, runs, tile)
@@ -196,11 +228,10 @@ def scv_spmm_runs(
                      stream)
     if rc != 0:
         raise RuntimeError(f"scv_spmm_runs ({body}) launch failed with CUDA error {rc}")
-    if body == "scalar":
-        scalar_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured.append((runs, body, dense_threshold))
     else:
-        launches += 1
-        dense_launches += int(dense)
+        add_counts(launch_counts(body, dense_threshold, runs.max_nnz))
     return out
 
 

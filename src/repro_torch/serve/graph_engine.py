@@ -37,6 +37,13 @@ capacity segment.
   own tile and ladder through ``tune.Autotuner`` on the engine's device;
   waves group by resolved config, and member and composite keys carry it.
   Only tile, ladder and cap reach the plan, as in the reference.
+* **Captured forward** — an unplaced wave's forward runs through the
+  engine's ``models.gnn.CapturedForward``: on a CUDA device one CUDA graph
+  per padding bucket (the reference's ``gnn_forward_jit``), replayed for
+  every later wave of the bucket.  A bucket's waves run eagerly until the
+  scheduler is idle (no wave queued or in flight, or ``run()`` served its
+  last wave), which is when the engine captures it: no capture sits on a
+  request's latency.  Placed waves run eagerly.
 
 The engine runs on ``device`` (default ``"cuda"``; it raises when no GPU
 is present, and the tests pass ``device="cpu"``); a placed composite's
@@ -59,6 +66,7 @@ from repro_torch.core.scv import (
     DEFAULT_CAP,
     DEFAULT_LADDER,
     DEFAULT_TILE,
+    MIN_TILE_BUCKET,
     RunIndex,
     SCVBucketedPlan,
     SCVPlan,
@@ -67,6 +75,7 @@ from repro_torch.core.validate import check_coo, validate_plan
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import (
     BatchedGraph,
+    CapturedForward,
     Graph,
     batch_features,
     build_graph,
@@ -262,7 +271,7 @@ def _assemble_segment(
     nt_members = int(nts.sum())
     n_cov = pad_nodes // T - n_aligned // T if first_segment else 0
     nt = nt_members + n_cov
-    nt_bucket = 8
+    nt_bucket = MIN_TILE_BUCKET
     while nt_bucket < nt:
         nt_bucket *= 2
     n_fill = nt_bucket - nt if nt else 0  # an empty composite stays empty
@@ -495,6 +504,10 @@ class GraphServeEngine:
         self.n_batches = 0  # composite waves served
         self.n_sharded_batches = 0  # of those, waves placed by the executor
         self.n_launches = 0  # SCV kernel launches (see plan_launches)
+        # unplaced waves' forward, captured once per padding bucket on a CUDA
+        # device when the scheduler is idle (eager on the CPU, keys counted
+        # all the same)
+        self.forward = CapturedForward(defer=True)
         self.serve_seconds = 0.0
         # delta-tracked graphs (see update()): graph_id -> current state
         self._graphs: dict[str, _TrackedGraph] = {}
@@ -768,11 +781,21 @@ class GraphServeEngine:
         the scheduler can assemble the next wave meanwhile."""
         bg = self._batch_plan(wave)
         params, mcfg = self.models[wave[0].model]
+        placed = isinstance(bg.graph.plan, ShardedPlan)
         with torch.inference_mode():
-            out = gnn_forward(
-                params, mcfg, bg.graph, batch_features(bg, [r.x for r in wave])
-            )
+            x = batch_features(bg, [r.x for r in wave])
+            out = (gnn_forward if placed else self.forward)(params, mcfg, bg.graph, x)
         return bg, out
+
+    def _capture_idle(self, limit: Optional[int] = None) -> int:
+        """Capture up to ``limit`` padding buckets whose waves ran eagerly
+        so far (the scheduler calls this with no wave queued or in flight);
+        returns how many.  Each capture runs the forward once eagerly
+        first, and its launches count as the engine's."""
+        done = self.forward.capture_pending(limit)
+        for mcfg, g in done:
+            self.n_launches += plan_launches(g.plan) * mcfg.n_layers
+        return len(done)
 
     def _finish_wave(self, wave, bg, out) -> list[GraphRequest]:
         """Copy a dispatched wave's outputs to the host (the device sync
@@ -880,6 +903,17 @@ class GraphServeEngine:
             "update_seconds": self.update_seconds,
             "assemble_seconds": self.assemble_seconds,
             "copy_seconds": self.copy_seconds,
+            # the captured forward of unplaced waves: keys minted, calls
+            # replayed, calls run eagerly while their key waited for an idle
+            # capture, CUDA graphs captured, bytes copied into the captures'
+            # static inputs, host seconds of captures (each with its eager
+            # run)
+            "forward_captures": self.forward.captures,
+            "forward_replays": self.forward.replays,
+            "forward_deferred": self.forward.deferred,
+            "forward_graphs": self.forward.graphs,
+            "forward_copy_bytes": self.forward.copy_bytes,
+            "forward_capture_seconds": self.forward.capture_seconds,
             "plan_cache_bytes": s.bytes_in_use,
             "plan_cache_entries": s.entries,
             "plan_cache_hit_rate": s.hit_rate,

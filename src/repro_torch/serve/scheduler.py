@@ -432,7 +432,9 @@ class Scheduler:
         form waves with no absorb window and serve until the queue is
         empty.  Exception semantics are the historical ones — failures
         isolate/eject and re-raise, interrupts restore the wave untouched
-        and consume no retries."""
+        and consume no retries.  Once the queue is empty the engine
+        captures the padding buckets its waves ran eagerly (after every
+        request completed: within ``run()``'s time, outside any latency)."""
         eng = self.engine
         t0 = time.perf_counter()
         done = eng.last_completed = []
@@ -452,6 +454,7 @@ class Scheduler:
                         raise
                     self._fail_wave(wave, e)
                     raise
+            eng._capture_idle()
             return done
         finally:
             eng.serve_seconds += time.perf_counter() - t0
@@ -549,7 +552,10 @@ class Scheduler:
             if inflight is None and not self.queue.depth():
                 if not self._running:
                     continue  # loop once more to hit the exit check
-                self.queue.wait_for_work(timeout=0.05)
+                # idle: capture one padding bucket served eagerly so far,
+                # then look at the queue again
+                if not eng._capture_idle(limit=1):
+                    self.queue.wait_for_work(timeout=0.05)
 
     def _retire(self, inflight: tuple) -> None:
         """Materialize a dispatched wave's outputs (blocks on the device),

@@ -7,7 +7,10 @@ that are not 16-byte aligned, an all-zero run), the shared-memory opt-in
 at T = 128, a refused launch, repeat launches giving the same bits,
 gradients through a CUDA forward, plans placed on four slots of the
 card by the sharding executor, the layouts the autotuner can pick (T =
-32 and one-rung ladders) and its stage 2 timing the kernel chain.
+32 and one-rung ladders) and its stage 2 timing the kernel chain, the
+forward captured in a CUDA graph (against eager, bit for bit on
+integers, and through the serving engine), and every aggregation backend
+against the SCV chain.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -580,3 +583,184 @@ def test_stage2_on_card_picks_the_measured_best(dev, tmp_path):
     assert (cfg.tile, cfg.bucket_caps) == (best.config.tile, best.config.bucket_caps)
     assert res.key.endswith(device_tag(dev)) and device_tag(dev).startswith("torch-cuda-")
 
+
+
+# ---------------------------------------------------------------------------
+# the captured forward and the aggregation backends on the card
+# ---------------------------------------------------------------------------
+def _composite_graph(dev, sizes, seed, with_edges):
+    """A serving composite (bucket 2,048 nodes) on the card with integer
+    values in every slot, for edges too."""
+    from repro_torch.models.gnn import Graph
+
+    adjs = [gcn_normalize(powerlaw_graph(n, 3 * n, seed=seed + i)) for i, n in enumerate(sizes)]
+    members = [build_graph(a, bucket_caps=(8, 32, 128), with_edges=with_edges, device="cpu")
+               for a in adjs]
+    g = assemble_batched_graph(members, 64, 2048, with_edges=with_edges, device=dev).graph
+    gen = torch.Generator().manual_seed(seed)
+    plan = _ints(g.plan, seed=seed)
+    vals = None if g.vals is None else torch.randint(
+        -4, 5, tuple(g.vals.shape), generator=gen).float().to(dev)
+    return Graph(n_nodes=g.n_nodes, plan=plan, rows=g.rows, cols=g.cols, vals=vals)
+
+
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gin", "gat"])
+def test_captured_forward_equals_eager_bit_for_bit(dev, kind):
+    """Captured equals eager on integer plan values and features, for the
+    first call of a key (eager, then captured) and for a replay after the
+    copy-in of a second composite of the same bucket; launches rise at
+    replay by what the eager forward launches."""
+    from repro_torch.models.gnn import CapturedForward, forward_key, gnn_forward
+
+    cfg = GNNConfig(name=kind, kind=kind, d_in=32, d_hidden=64, n_classes=8)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    if kind == "gat":
+        # uniform attention: the softmax sums (index_add_, atomics in no
+        # fixed order) add ones, exact in any order
+        params = {layer: {k: torch.zeros_like(v) if k.startswith("a_") else v
+                          for k, v in ps.items()} for layer, ps in params.items()}
+    fwd = CapturedForward()
+    gen = torch.Generator().manual_seed(1)
+    graphs = [_composite_graph(dev, sizes, seed, kind == "gat")
+              for sizes, seed in (([300, 900, 150, 600], 0), ([350, 850, 200, 550], 40))]
+    xs = [torch.randint(-2, 3, (g.n_nodes, cfg.d_in), generator=gen).float().to(dev)
+          for g in graphs]
+    assert forward_key(params, cfg, graphs[0], xs[0]) == forward_key(params, cfg, graphs[1], xs[1])
+    with torch.inference_mode():
+        for i in (0, 1, 0):
+            kmod.reset_counts()
+            got = fwd(params, cfg, graphs[i], xs[i])
+            torch.cuda.synchronize()
+            launched = kmod.launches
+            want = gnn_forward(params, cfg, graphs[i], xs[i])
+            assert launched == plan_launches(graphs[i].plan) * cfg.n_layers
+            assert torch.equal(got, want), i
+    assert (fwd.captures, fwd.replays, fwd.graphs) == (1, 2, 1) and fwd.copy_bytes > 0
+    if kind == "gat":  # seed-0 attention: the same within the atomics' rounding
+        params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+        with torch.inference_mode():
+            got = fwd(params, cfg, graphs[1], xs[1])
+            want = gnn_forward(params, cfg, graphs[1], xs[1])
+        assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_replayed_dense_counts_follow_the_loaded_run_index(dev, defer):
+    """T = 32 under the ladder (8, 32, 128): the cap passes T²/16 = 64, so
+    a captured launch keeps room for the dense branch, yet a replay counts
+    a dense launch only when a tile of the composite it loaded passes 64,
+    as the eager wrapper does; captured equals eager bit for bit, captured
+    at the first call or, deferred, by ``capture_pending``."""
+    from repro_torch.models.gnn import CapturedForward, forward_key, gnn_forward
+
+    rng = np.random.default_rng(5)
+
+    def graph(fills):
+        # one tile on the diagonal per block-row, ``fill`` entries each
+        rows, cols = [], []
+        for b, fill in enumerate(fills):
+            slot = rng.choice(32 * 32, fill, replace=False)
+            rows.append(32 * b + slot // 32)
+            cols.append(32 * b + slot % 32)
+        rows, cols = np.concatenate(rows), np.concatenate(cols)
+        vals = rng.integers(-4, 5, len(rows)).astype(np.float32)
+        adj = COOMatrix(rows.astype(np.int32), cols.astype(np.int32), vals, (128, 128))
+        return build_graph(adj, tile=32, bucket_caps=(8, 32, 128), with_edges=False,
+                           device=dev)
+
+    graphs = [graph([48, 40, 56, 64]), graph([100, 40, 56, 64])]
+    assert [s.n_tiles for s in graphs[0].plan.segments] == [4, 0, 4]
+    cfg = GNNConfig(name="gcn", kind="gcn", d_in=16, d_hidden=32, n_classes=4)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    gen = torch.Generator().manual_seed(6)
+    xs = [torch.randint(-2, 3, (128, cfg.d_in), generator=gen).float().to(dev)
+          for _ in graphs]
+    assert forward_key(params, cfg, graphs[0], xs[0]) == forward_key(params, cfg, graphs[1], xs[1])
+    fwd = CapturedForward(defer=defer)
+    with torch.inference_mode():
+        for n, i in enumerate((0, 1, 0, 1)):
+            kmod.reset_counts()
+            got = fwd(params, cfg, graphs[i], xs[i])
+            torch.cuda.synchronize()
+            counts = (kmod.launches, kmod.dense_launches)
+            assert torch.equal(got, gnn_forward(params, cfg, graphs[i], xs[i])), n
+            assert counts == (plan_launches(graphs[i].plan) * cfg.n_layers,
+                              cfg.n_layers * i), n
+            if defer and n == 0:
+                assert (fwd.graphs, len(fwd.capture_pending())) == (0, 1)
+    assert (fwd.captures, fwd.graphs, fwd.replays) == (1, 1, 3)
+
+
+def test_engine_captures_once_per_bucket_on_card(dev):
+    """An engine on the card: a burst's buckets run eagerly and are captured
+    once the queue is empty, a repeated burst replays them and captures
+    nothing new, every output matches the eager forward, and the kernel's
+    launches equal the engine's (the captures' eager runs included)."""
+    from repro_torch.models.gnn import gnn_forward
+    from repro_torch.serve.graph_engine import GraphEngineConfig, GraphRequest, GraphServeEngine
+
+    cfg = GNNConfig(name="gcn", kind="gcn", d_in=16, d_hidden=32, n_classes=4)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device="cpu")
+    eng = GraphServeEngine({"gcn": (params, cfg)}, GraphEngineConfig(max_batch_graphs=4),
+                           device=dev)
+    rng = np.random.default_rng(0)
+    adjs = [gcn_normalize(powerlaw_graph(int(n), 3 * int(n), seed=i))
+            for i, n in enumerate(rng.integers(100, 900, 12))]
+    xs = [rng.standard_normal((a.shape[0], cfg.d_in)).astype(np.float32) for a in adjs]
+
+    def burst(base):
+        reqs = [GraphRequest(rid=base + i, adj=a, x=x, model="gcn")
+                for i, (a, x) in enumerate(zip(adjs, xs))]
+        for r in reqs:
+            eng.submit(r)
+        kmod.reset_counts()
+        before = eng.metrics()["launches"]
+        eng.run()
+        assert kmod.launches == eng.metrics()["launches"] - before > 0
+        return reqs
+
+    first = burst(0)
+    m = eng.metrics()
+    captures, waves = m["forward_captures"], m["waves"]
+    assert m["forward_graphs"] == captures and m["forward_replays"] == 0
+    assert m["forward_deferred"] == waves - captures
+    again = burst(100)
+    m = eng.metrics()
+    assert (m["forward_captures"], m["forward_graphs"]) == (captures, captures)
+    assert m["forward_replays"] == m["waves"] - waves >= len(adjs) // 4
+    dev_params = eng.models["gcn"][0]
+    for r in first + again:
+        g = build_graph(r.adj, device=dev)
+        with torch.inference_mode():
+            want = gnn_forward(dev_params, cfg, g, torch.from_numpy(r.x).to(dev)).cpu().numpy()
+        np.testing.assert_allclose(r.out, want, rtol=0, atol=1e-4 * max(1.0, np.abs(want).max()))
+
+
+def test_backends_equal_the_scv_chain_on_integers(dev):
+    """Every format ``aggregate`` takes, on the card, against the SCV chain
+    on the bucketed plan of the same integer-valued graph; each SCV format
+    launches the kernel."""
+    from repro_torch.core.aggregate import aggregate, aggregate_hybrid
+    from repro_torch.core.formats import coo_to_bcsr, coo_to_csc, coo_to_csr
+    from repro_torch.core.scv import coo_to_scv, split_hybrid
+
+    a = powerlaw_edges(1024, 60_000, seed=3)
+    gen = np.random.default_rng(0)
+    a = COOMatrix(a.rows, a.cols, gen.integers(-4, 5, a.nnz).astype(np.float32), a.shape)
+    z = torch.from_numpy(gen.integers(-4, 5, (a.shape[1], 48)).astype(np.float32)).to(dev)
+    plan = build_graph(a, bucket_caps=(8, 32, 128), with_edges=False, device=dev).plan
+    want = scv_spmm_plan(plan, z)[: a.shape[0]]
+    tiles = coo_to_scv_tiles(a, 64)
+    assert split_hybrid(tiles)[1].n_tiles > 0
+    formats = {"dense": torch.from_numpy(a.to_dense()), "coo": a, "csr": coo_to_csr(a),
+               "csc": coo_to_csc(a), "bcsr": coo_to_bcsr(a, 64),
+               "scv matrix": coo_to_scv(a, 64), "scv tiles": tiles, "bucketed plan": plan}
+    for name, fmt in formats.items():
+        kmod.reset_counts()
+        got = aggregate(fmt, z)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        assert (kmod.launches > 0) == name.startswith(("scv", "bucketed")), name
+    kmod.reset_counts()
+    assert torch.equal(aggregate_hybrid(tiles, z), want)
+    assert kmod.launches == 1

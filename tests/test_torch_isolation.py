@@ -49,7 +49,8 @@ def test_port_has_modules():
             "repro_torch.simul.machine", "repro_torch.tune.cost",
             "repro_torch.simul.memory", "repro_torch.simul.dataflows", "repro_torch.simul.sim",
             "repro_torch.tune.signature", "repro_torch.tune.store",
-            "repro_torch.tune.autotuner"} <= names
+            "repro_torch.tune.autotuner", "repro_torch.core.aggregate",
+            "repro_torch.core.tracecheck"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],
