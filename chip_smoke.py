@@ -129,8 +129,35 @@ Phases, each of which fails the run on error:
     ``core.tracecheck.trace_check`` over the four kinds on the card must
     be ok.
 
-Each of phases 4, 5, 8, 9, 10, 11, 12, 13 and 14 sets the kernels' launch
-counts to 0 just before it drives its path and reads them just after.  The line before the last is a JSON
+15. The decoder LMs (``models/layers.py``, ``models/transformer.py``,
+    ``serve/engine.py``), which reach no SCV kernel: the reference's LM
+    substrate calls no ``pl.pallas_call``, so its products are cuBLAS
+    calls and the rest PyTorch ops.  (a) Each LM arch's reduced config in
+    float32 (TF32 off), the same weights on the card and on the CPU,
+    through prefill and 3 decode steps (``internvl2-76b`` with its stub
+    frontend embeddings): logits and every cache leaf within 1e-4 of the
+    largest magnitude.  (b) ``gemma3-4b`` at full width, its depth cut to
+    10 layers (its 4 leading global layers and one 5-local + 1-global
+    group), float32, B = 2: a 2,048-token prefill (blockwise attention;
+    the local layers' 1,024-slot rings wrap) and one decode step, against
+    the forward over all 2,049 tokens: |Δ log-softmax| < 5e-3 and the same
+    argmax with a plain cache; < 0.15 with the config's int8 cache, and
+    the same argmax wherever the forward's top-1 leads by more than 0.3.
+    (c) ``olmoe-1b-7b`` at full width and depth, 6.82B params drawn from
+    a seeded generator on the card, served in bf16 (the weights cast
+    once): ``ServeEngine(max_batch=4)`` serves 8 requests of 512 prompt
+    tokens and one of 2,048 (blockwise prefill), 32 new tokens each; every
+    request gets them and every logit is finite.  Then layer 0's MoE input
+    from the first batch's prefill (B = 4, S = 512) in float32, capacity
+    factor E/K = 8 (no slot drops): ``moe_sorted`` equals ``moe_dense``
+    within 1e-4 of the largest magnitude, and each aux loss its own
+    formula's (the two differ by definition).  Prefill ms per batch and
+    decode ms per step (CUDA events), tokens/s (host clock), weight bytes
+    and peak memory are printed with the card's name and power limit.
+
+Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14 and 15 sets the kernels'
+launch counts to 0 just before it drives its path and reads them just
+after (phase 15 requires none).  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -184,6 +211,11 @@ CAPTURE_REPS = 20  # phase 14: forwards on the host clock, eager and captured
 SERVE_PAIRS = 10  # phase 14: serving pairs, captured and eager engines in turns
 SERVE_RATE = 400.0  # requests/s offered in phase 4's and phase 14's open loops
 SERVE_NODE_BUCKETS = (2048, 4096, 8192)  # launch/graph_serve.py's engine
+LM_PROMPT, LM_DECODE_STEPS = 20, 3  # phase 15(a): reduced configs, card against CPU
+LM_GEMMA_LAYERS = 10  # phase 15(b): gemma3-4b's 4 leading globals + one 5-local/1-global group
+LM_GEMMA_BATCH, LM_GEMMA_PROMPT = 2, 2048  # blockwise prefill; the 1,024-slot rings wrap
+LM_SERVE_REQUESTS, LM_SERVE_PROMPT, LM_LONG_PROMPT = 8, 512, 2048  # phase 15(c), olmoe-1b-7b
+LM_MAX_NEW, LM_MAX_BATCH = 32, 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1655,6 +1687,283 @@ def capture_drive(arxiv, cfg, pool, layout, check_outputs, dev, card: str) -> di
     return out
 
 
+def lm_card_vs_cpu(archs, dev) -> dict:
+    """15(a): each LM arch's reduced config in float32, the same weights
+    and tokens through prefill and decode on the card and on the CPU:
+    logits and every cache leaf within 1e-4 of the largest magnitude."""
+    from repro_torch.models import transformer as TT
+
+    worst = {}
+    for name, spec in archs.items():
+        cfg = spec.cfg(reduced=True)
+        params, _ = spec.init(torch.Generator().manual_seed(0), reduced=True, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (2, LM_PROMPT + LM_DECODE_STEPS), generator=gen,
+                             dtype=torch.int32)
+        extra = (torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+                 if cfg.n_frontend_tokens else None)
+        n_front = cfg.n_frontend_tokens
+        max_len = n_front + LM_PROMPT + LM_DECODE_STEPS + 2
+
+        def run(p, d):
+            e = None if extra is None else extra.to(d)
+            logits, cache = TT.prefill(p, cfg, toks[:, :LM_PROMPT].to(d), extra_embed=e,
+                                       max_len=max_len)
+            outs = [logits]
+            for s in range(LM_DECODE_STEPS):
+                pos = torch.full((2, 1), n_front + LM_PROMPT + s, dtype=torch.int32, device=d)
+                tok = toks[:, LM_PROMPT + s : LM_PROMPT + s + 1].to(d)
+                logits, cache = TT.decode_step(p, cfg, tok, cache, pos)
+                outs.append(logits)
+            return outs, dict(TT.leaf_paths(cache))
+
+        want, want_cache = run(params, torch.device("cpu"))
+        got, got_cache = run(TT.params_from_jax(params, dev), dev)
+        err = 0.0
+        pairs = [(f"logits {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]
+        pairs += [(k, got_cache[k], w) for k, w in want_cache.items()]
+        check(set(got_cache) == set(want_cache), f"{name}: cache leaves differ")
+        for what, g, w in pairs:
+            g = g.cpu()
+            if not w.dtype.is_floating_point:
+                check(torch.equal(g, w), f"{name} {what}: card and CPU differ")
+                continue
+            e, scale = rel_err(g, w)
+            check(e <= 1e-4 * max(scale, 1e-30), f"{name} {what}: card off the CPU by {e} "
+                  f"(max |CPU| {scale})")
+            err = max(err, e / max(scale, 1e-30))
+        worst[name] = err
+        print(f"[lm] 15(a) {name} reduced, float32: prefill {LM_PROMPT} + {LM_DECODE_STEPS} "
+              f"decode steps, card against CPU: {len(pairs)} leaves, max err / max |CPU| "
+              f"{err:.2e}")
+    return worst
+
+
+def lm_decode_consistency(full_cfg, dev, card: str) -> dict:
+    """15(b): gemma3-4b at full width, depth cut to LM_GEMMA_LAYERS, float32:
+    a blockwise prefill whose local rings wrap, then one decode step, held
+    against the forward over every token by the reference's tolerances:
+    |d log-softmax| < 5e-3 with the same argmax for the plain cache; < 0.15
+    for the int8 cache, with the same argmax on every row whose forward
+    leads its runner-up by more than twice that bound (a random-weight
+    model over 262,144 tokens is nearly flat: a closer pair may swap
+    within the bound, as it does in the reference's own int8 arithmetic)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TT
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    base = dataclasses.replace(full_cfg, n_layers=LM_GEMMA_LAYERS, dtype=torch.float32)
+    t0 = time.perf_counter()
+    params, _ = TT.init_lm(gen, base, device=dev)
+    n_params = sum(t.numel() for _, t in TT.leaf_paths(params))
+    S = LM_GEMMA_PROMPT + 1
+    toks = torch.randint(0, base.vocab, (LM_GEMMA_BATCH, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    with torch.inference_mode():
+        x, _, _ = TT.hidden_states(params, base, toks)
+        direct = L.unembed_logits(params["embed"], x[:, -1:], base.final_softcap,
+                                  true_vocab=base.vocab)
+        ld = torch.log_softmax(direct, dim=-1)
+        top2 = ld.topk(2, dim=-1).values[:, 0]
+        margin = (top2[:, 0] - top2[:, 1]).tolist()  # the forward's top-1 lead, per row
+        for kv_quant, tol in ((False, 5e-3), (True, 0.15)):
+            cfg = dataclasses.replace(base, kv_quant=kv_quant)
+            _, cache = TT.prefill(params, cfg, toks[:, :-1], max_len=S)
+            pos = torch.full((LM_GEMMA_BATCH, 1), S - 1, dtype=torch.int32, device=dev)
+            logits, _ = TT.decode_step(params, cfg, toks[:, -1:], cache, pos)
+            lp = torch.log_softmax(logits, dim=-1)
+            err = torch.where(torch.isfinite(lp), lp - ld, 0.0).abs().max().item()
+            same = (logits.argmax(-1) == direct.argmax(-1))[:, 0].tolist()
+            check(err < tol, f"gemma3-4b kv_quant={kv_quant}: |d log-softmax| {err} >= {tol}")
+            decisive = [m > 2 * tol for m in margin]
+            check(all(ok for ok, d in zip(same, decisive) if d),
+                  f"gemma3-4b kv_quant={kv_quant}: decode argmax differs from the forward's "
+                  f"on a row it leads by more than {2 * tol} (margins {margin}, same {same})")
+            out[kv_quant] = (err, same, decisive)
+    torch.cuda.synchronize()
+    print(f"[lm] 15(b) gemma3-4b full width ({base.d_model} d, vocab {base.vocab}), "
+          f"{LM_GEMMA_LAYERS} of {full_cfg.n_layers} layers ({base.first_dense} global + "
+          f"{base.n_rep} x {base.layer_pattern}), {n_params} params in float32, B = "
+          f"{LM_GEMMA_BATCH}: prefill {LM_GEMMA_PROMPT} (blockwise, local rings of "
+          f"{base.window} wrap) + 1 decode step against the forward over {S} tokens: "
+          f"|d log-softmax| {out[False][0]:.3e} (< 5e-3), argmax equal {out[False][1]} "
+          f"(rows held: {out[False][2]}); int8 cache {out[True][0]:.3e} (< 0.15), argmax "
+          f"equal {out[True][1]} (rows held: {out[True][2]}); the forward's top-1 leads by "
+          f"{', '.join(f'{m:.4f}' for m in margin)}; {time.perf_counter() - t0:.1f} s [{card}]")
+    del params, x
+    return out
+
+
+class _MoEInputs:
+    """Records each ``moe_sorted`` call's input during one prefill."""
+
+    def __init__(self, layers_mod):
+        self.mod, self.seen = layers_mod, []
+
+    def __enter__(self):
+        self.orig = self.mod.moe_sorted
+
+        def recording(p, x, mcfg):
+            self.seen.append((p, x))
+            return self.orig(p, x, mcfg)
+
+        self.mod.moe_sorted = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_sorted = self.orig
+
+
+def lm_serve(full_cfg, dev, card: str) -> dict:
+    """15(c): olmoe-1b-7b at full width and depth, bf16, weights from a
+    seeded generator on the card, served by ``ServeEngine``; then the
+    SCV-sorted dispatch against the dense one on a layer's MoE input from
+    that serving's first prefill, in float32 with no slot dropped."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = full_cfg
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    params, _ = TT.init_lm(torch.Generator(device=dev).manual_seed(3), cfg, device=dev)
+    n_params = sum(t.numel() for _, t in TT.leaf_paths(params))
+    served = TT.serving_params(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in TT.leaf_paths(served))
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    timings = {"prefill": [], "decode": []}
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def timed(kind, fn):
+        def call(*args):
+            nonlocal finite
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, state = fn(*args)
+            end.record()
+            finite = finite & torch.isfinite(logits).all()
+            tokens = args[1] if kind == "prefill" else args[2]
+            timings[kind].append((tuple(tokens.shape), start, end))
+            return logits, state
+        return call
+
+    engine = ServeEngine(
+        served,
+        timed("prefill", lambda p, t: TT.prefill(p, cfg, t, max_len=t.shape[1] + LM_MAX_NEW)),
+        timed("decode", lambda p, s, t, pos: TT.decode_step(p, cfg, t, s, pos)),
+        EngineConfig(max_batch=LM_MAX_BATCH), device=dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, LM_SERVE_PROMPT) for _ in range(LM_SERVE_REQUESTS)]
+    prompts.append(rng.integers(0, cfg.vocab, LM_LONG_PROMPT))
+    for rid, pr in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=pr.astype(np.int32), max_new=LM_MAX_NEW))
+    first_batch = torch.from_numpy(np.stack(prompts[:LM_MAX_BATCH]).astype(np.int32)).to(dev)
+    with torch.inference_mode():  # warm-up (library set-up), outside the timings
+        _, cache = TT.prefill(served, cfg, first_batch[:, :16], max_len=17)
+        TT.decode_step(served, cfg, first_batch[:, :1], cache,
+                       torch.full((LM_MAX_BATCH, 1), 16, dtype=torch.int32, device=dev))
+    del cache
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    n_tokens = sum(len(r.out) for r in done)
+    check(len(done) == len(prompts) and all(len(r.out) == LM_MAX_NEW for r in done),
+          f"olmoe serving: {[len(r.out) for r in done]} tokens per request")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out), "olmoe serving: token off vocab")
+    check(bool(finite.item()), "olmoe serving: non-finite logits")
+    prefill_ms = [(shape, s.elapsed_time(e)) for shape, s, e in timings["prefill"]]
+    decode = {}
+    for shape, s, e in timings["decode"]:
+        decode.setdefault(shape[0], []).append(s.elapsed_time(e))
+    decode_ms = {b: float(np.median(v)) for b, v in decode.items()}
+    # decode reads every weight once (the sorted dispatch runs all experts)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lm] 15(c) olmoe-1b-7b full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, vocab {cfg.vocab}): "
+          f"{n_params} params drawn on the card, served in {cfg.dtype} "
+          f"({weight_bytes} weight bytes; init and cast {init_s:.1f} s) [{card}]")
+    print(f"[lm] 15(c) served {len(done)} requests ({LM_SERVE_REQUESTS} x {LM_SERVE_PROMPT} + "
+          f"1 x {LM_LONG_PROMPT} prompt tokens, max_new {LM_MAX_NEW}, max_batch "
+          f"{LM_MAX_BATCH}): {n_tokens} tokens in {wall:.3f} s, {n_tokens / wall:.1f} tokens/s "
+          f"(host clock); peak memory {peak} bytes (max_memory_allocated over what earlier "
+          f"phases hold) [{card}]")
+    print("[lm] 15(c) prefill ms per batch (CUDA events): " + ", ".join(
+        f"{b} x {n} {ms:.3f}" for (b, n), ms in prefill_ms)
+        + "; decode ms per step (median): " + ", ".join(
+        f"B={b} {ms:.3f} over {len(decode[b])} steps" for b, ms in decode_ms.items())
+        + f"; weight-read bound {bound_ms:.3f} ms a step [{card}]")
+
+    # the SCV-sorted dispatch at full width: layer 0's MoE input of the
+    # first batch's prefill, float32, capacity E/K so no slot drops
+    with torch.inference_mode(), _MoEInputs(L) as rec:
+        TT.prefill(served, cfg, first_batch, max_len=LM_SERVE_PROMPT)
+    p0, x0 = rec.seen[0]
+    pf = {k: v.float() for k, v in p0.items()}
+    xf = x0.float()
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=E / K)
+    cap = int(mcfg.capacity_factor * xf.shape[1] * K / E) + 1
+    check(cap >= xf.shape[1], f"capacity {cap} would drop slots")
+    with torch.inference_mode():
+        y_s, aux_s = L.moe_sorted(pf, xf, mcfg)
+        y_d, aux_d = L.moe_dense(pf, xf, mcfg)
+        err, scale = rel_err(y_s, y_d)
+        check(err <= 1e-4 * scale, f"moe_sorted off moe_dense at full width: {err} (max {scale})")
+        # the two aux losses differ by the reference's own definitions: the
+        # sorted one counts routed slots, the dense one sums gate mass
+        probs, gate, eidx = L._route(pf, xf, mcfg)
+        me = probs.mean(dim=(0, 1))
+        counts = torch.bincount(eidx.reshape(-1), minlength=E).float() / eidx.numel()
+        mass = torch.zeros((E,), device=dev).index_add_(0, eidx.reshape(-1), gate.reshape(-1))
+        want_s = (E * (me * counts).sum()).item()
+        want_d = (E * (me * mass / (xf.shape[0] * xf.shape[1])).sum()).item()
+        check(abs(aux_s.item() - want_s) <= 1e-4 * abs(want_s), f"sorted aux {aux_s} != {want_s}")
+        check(abs(aux_d.item() - want_d) <= 1e-4 * abs(want_d), f"dense aux {aux_d} != {want_d}")
+        sorted_ms = device_ms(lambda: L.moe_sorted(pf, xf, mcfg), 5)
+        dense_ms = device_ms(lambda: L.moe_dense(pf, xf, mcfg), 5)
+        serve_sorted_ms = device_ms(lambda: L.moe_sorted(p0, x0, cfg.moe), 5)
+        serve_dense_ms = device_ms(lambda: L.moe_dense(p0, x0, cfg.moe), 5)
+    print(f"[lm] 15(c) moe_sorted against moe_dense, layer 0 of the first prefill (B = "
+          f"{xf.shape[0]}, S = {xf.shape[1]}), float32, capacity factor {E / K:g} (cap {cap}, "
+          f"nothing dropped): max abs err {err:.3e} (max |dense| {scale:.3e}); aux sorted "
+          f"{aux_s.item():.6f}, dense {aux_d.item():.6f}, each its own formula's; float32 ms "
+          f"sorted {sorted_ms:.3f}, dense {dense_ms:.3f}; as served ({cfg.dtype}, capacity "
+          f"factor {cfg.moe.capacity_factor:g}) sorted {serve_sorted_ms:.3f}, dense "
+          f"{serve_dense_ms:.3f} (device_ms) [{card}]")
+    del served, pf, xf, y_s, y_d
+    return dict(wall=wall, tokens=n_tokens, peak=peak, weight_bytes=weight_bytes,
+                prefill_ms=prefill_ms, decode_ms=decode_ms, moe_err=err / scale)
+
+
+def lm_drive(dev, card: str) -> dict:
+    """Phase 15: the decoder-LM path (no SCV kernel on it)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+
+    t0 = time.perf_counter()
+    worst = lm_card_vs_cpu(ARCHS, dev)
+    consistency = lm_decode_consistency(ARCHS["gemma3-4b"].cfg(), dev, card)
+    kmod.reset_counts()
+    serving = lm_serve(ARCHS["olmoe-1b-7b"].cfg(), dev, card)
+    launches = (kmod.launches, kmod.scalar_launches)
+    check(launches == (0, 0), f"the LM path launched SCV kernels: {launches}")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[lm] phase 15: {seconds:.1f} s; SCV kernel launches on the LM path: 0 (the LM "
+          f"substrate reaches no pl.pallas_call)")
+    return dict(worst=worst, consistency=consistency, serving=serving, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card only",
@@ -2212,6 +2521,9 @@ def main() -> int:
     captured = capture_drive(arxiv, cfg, pool, layout, check_outputs, dev, smi)
     print(f"[capture] phase 14: {time.perf_counter() - t14:.1f} s (backends "
           f"{backends['seconds']:.1f} s, captured forward {captured['seconds']:.1f} s)")
+
+    # -- 15. the decoder-LM path ------------------------------------------------
+    lm_drive(dev, smi)
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

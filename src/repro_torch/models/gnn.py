@@ -20,6 +20,7 @@ reference's weights over.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import time
 from typing import Optional
@@ -515,6 +516,12 @@ class _Capture:
         # allocator's cache first, which a capture on a stream of its own
         # does not need (on the H100 it made each capture several times
         # slower)
+        # nor may the garbage collector run inside it: a dropped engine's
+        # captures and their forward refer to each other, so only a
+        # collection frees their CUDA graphs, and freeing one while this
+        # capture is underway invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(side):
                 self.graph.capture_begin(capture_error_mode="thread_local")
@@ -525,6 +532,8 @@ class _Capture:
             self.launches = [(seg_of[id(r)], body, threshold)
                              for r, body, threshold in kmod.captured[n_before:]]
         finally:
+            if collecting:
+                gc.enable()
             del kmod.captured[n_before:]
         cur.wait_stream(side)
         self.first.record_stream(cur)

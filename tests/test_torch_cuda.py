@@ -9,8 +9,9 @@ gradients through a CUDA forward, plans placed on four slots of the
 card by the sharding executor, the layouts the autotuner can pick (T =
 32 and one-rung ladders) and its stage 2 timing the kernel chain, the
 forward captured in a CUDA graph (against eager, bit for bit on
-integers, and through the serving engine), and every aggregation backend
-against the SCV chain.
+integers, and through the serving engine), every aggregation backend
+against the SCV chain, and the decoder LM (prefill and decode, caches
+included) on the card against the same code on the CPU.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -764,3 +765,83 @@ def test_backends_equal_the_scv_chain_on_integers(dev):
     kmod.reset_counts()
     assert torch.equal(aggregate_hybrid(tiles, z), want)
     assert kmod.launches == 1
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma3-4b", "deepseek-v2-lite"])
+def test_lm_on_card_equals_cpu(dev, arch):
+    """A reduced LM config in float32 (TF32 off; its float32 caches)
+    through prefill and three decode steps on the card and on the CPU with
+    the same weights: logits and every cache leaf within 1e-4 of the
+    largest magnitude, as ``chip_smoke.py`` phase 15(a).  (An int8 cache
+    may round one value a quantum apart on the two devices, which moves
+    the logits by about that much; phase 15(b) holds the int8 path on the
+    card against the forward instead.)"""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as TT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].cfg(reduced=True)
+    params, _ = TT.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    on_card = TT.params_from_jax(params, device=dev)  # the same leaves, copied over
+    toks = torch.randint(0, cfg.vocab, (2, 23), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+
+    def run(p, device):
+        logits, cache = TT.prefill(p, cfg, toks[:, :20].to(device), max_len=26)
+        outs = [logits]
+        for s in range(3):
+            pos = torch.full((2, 1), 20 + s, dtype=torch.int32, device=device)
+            logits, cache = TT.decode_step(p, cfg, toks[:, 20 + s : 21 + s].to(device), cache, pos)
+            outs.append(logits)
+        return outs, dict(TT.leaf_paths(cache))
+
+    want, want_cache = run(params, "cpu")
+    got, got_cache = run(on_card, dev)
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    assert set(got_cache) == set(want_cache)
+    for k, w in want_cache.items():
+        g = got_cache[k].cpu()
+        if w.dtype.is_floating_point:
+            assert (g - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item()), k
+        else:
+            assert torch.equal(g, w), k
+
+
+def test_no_garbage_collection_inside_a_capture(dev):
+    """A dropped engine's captures and their forward refer to each other,
+    so only the cyclic collector frees their CUDA graphs; freeing one while
+    another capture is underway invalidates that capture.  The capture
+    turns automatic collection off while it runs (the forward's second
+    call is the captured one), and a capture made with such garbage
+    present and the collector primed to run at every allocation gives
+    eager's bits."""
+    import gc
+
+    from repro_torch.models.gnn import CapturedForward, gnn_forward
+
+    cfg = GNNConfig(name="gcn", kind="gcn", d_in=32, d_hidden=64, n_classes=8)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    g = _composite_graph(dev, [300, 900, 150, 600], 0, False)
+    x = torch.randint(-2, 3, (g.n_nodes, cfg.d_in),
+                      generator=torch.Generator().manual_seed(1)).float().to(dev)
+    collecting = []
+
+    def forward(*args):
+        collecting.append(gc.isenabled())
+        return gnn_forward(*args)
+
+    with torch.inference_mode():
+        old = CapturedForward()
+        old(params, cfg, g, x)
+        assert old.captures == 1
+        del old  # garbage until a collection
+        thresholds = gc.get_threshold()
+        gc.set_threshold(1, 1, 1)
+        try:
+            got = CapturedForward(forward=forward)(params, cfg, g, x)
+        finally:
+            gc.set_threshold(*thresholds)
+        torch.cuda.synchronize()
+        assert collecting == [True, False] and gc.isenabled()
+        assert torch.equal(got, gnn_forward(params, cfg, g, x))

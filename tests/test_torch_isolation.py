@@ -50,7 +50,13 @@ def test_port_has_modules():
             "repro_torch.simul.memory", "repro_torch.simul.dataflows", "repro_torch.simul.sim",
             "repro_torch.tune.signature", "repro_torch.tune.store",
             "repro_torch.tune.autotuner", "repro_torch.core.aggregate",
-            "repro_torch.core.tracecheck"} <= names
+            "repro_torch.core.tracecheck", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.configs.common",
+            "repro_torch.configs.gemma2_27b", "repro_torch.configs.starcoder2_15b",
+            "repro_torch.configs.gemma3_4b", "repro_torch.configs.qwen15_32b",
+            "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v2_lite",
+            "repro_torch.configs.internvl2_76b", "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],
