@@ -154,10 +154,37 @@ Phases, each of which fails the run on error:
     formula's (the two differ by definition).  Prefill ms per batch and
     decode ms per step (CUDA events), tokens/s (host clock), weight bytes
     and peak memory are printed with the card's name and power limit.
+16. The SSM, hybrid and encoder-decoder families (``models/ssm.py``,
+    ``models/hybrid.py``, ``models/encdec.py``), which reach no SCV
+    kernel either, and the launcher's decode step captured in a CUDA
+    graph (``serve/engine.py::CapturedDecode``, built by
+    ``launch/serve.py::serve_fns``).  (a) ``mamba2-780m``, ``zamba2-2.7b``
+    and ``whisper-small`` reduced, float32, the same weights on the card
+    and on the CPU: hidden states (the encoder and the teacher-forced
+    decoder), the chunked prefill (the decoder cache), 3 decode steps and
+    every state leaf within 1e-4 of the largest magnitude.  (b) At full
+    width and depth in float32: ``mamba2-780m`` and ``zamba2-2.7b``, B =
+    2, 600 tokens (three SSD chunks, the last one padded): the last
+    position's log-softmax from the chunked ``hidden_states`` against 600
+    recurrent steps through the launcher's captured decode, within 1e-3;
+    ``whisper-small``: 32 greedy steps from ``encode`` over 4 x 1,500
+    frames against ``decode_train`` on the tokens fed, within 1e-3 and the
+    same picks wherever ``decode_train`` leads by more than 2e-3.  (c) In
+    bf16 at full width and depth: ``zamba2-2.7b`` and ``mamba2-780m``
+    served through ``ServeEngine`` with the launcher's functions (8
+    requests of 512 prompt tokens, prefilled one token at a time through
+    the decode step, 32 new tokens, B = 4), once with an eager decode and
+    once captured; ``olmoe-1b-7b`` (phase 15's weights and first batch)
+    the same way; ``whisper-small`` 32 greedy steps eager and captured.
+    Captured and eager give the same tokens and logits equal bit for bit;
+    prefill ms per batch, decode ms per step (CUDA events), tokens/s (host
+    clock), captures, state bytes copied in and peak memory are printed
+    beside each step's bound (weights, and the state, read once at the
+    card's memory rate).
 
-Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14 and 15 sets the kernels'
-launch counts to 0 just before it drives its path and reads them just
-after (phase 15 requires none).  The line before the last is a JSON
+Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14, 15 and 16 sets the
+kernels' launch counts to 0 just before it drives its path and reads them
+just after (phases 15 and 16 require none).  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -216,6 +243,13 @@ LM_GEMMA_LAYERS = 10  # phase 15(b): gemma3-4b's 4 leading globals + one 5-local
 LM_GEMMA_BATCH, LM_GEMMA_PROMPT = 2, 2048  # blockwise prefill; the 1,024-slot rings wrap
 LM_SERVE_REQUESTS, LM_SERVE_PROMPT, LM_LONG_PROMPT = 8, 512, 2048  # phase 15(c), olmoe-1b-7b
 LM_MAX_NEW, LM_MAX_BATCH = 32, 4
+SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b", "whisper-small")  # phase 16(a)
+SSM_BATCH, SSM_PROMPT = 2, 600  # 16(b): three SSD chunks of 256, the last one padded
+SSM_TOL = 1e-3  # 16(b): |d log-softmax|, chunked against recurrent, float32
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TOKENS = 4, 1500, 32  # Whisper's 30-second window
+WHISPER_START = 50_258  # the first token the decoder is fed (start of transcript)
+SSM_SERVE_ARCHS, SSM_SERVE_REQUESTS = ("zamba2-2.7b", "mamba2-780m"), 8  # 16(c)
+PROFILE_STEPS = 5  # 16(c): decode steps timed on the host clock and under torch.profiler
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1951,7 +1985,7 @@ def lm_drive(dev, card: str) -> dict:
     from repro_torch.kernels.scv_spmm import scv_spmm as kmod
 
     t0 = time.perf_counter()
-    worst = lm_card_vs_cpu(ARCHS, dev)
+    worst = lm_card_vs_cpu({k: v for k, v in ARCHS.items() if v.kind == "lm"}, dev)
     consistency = lm_decode_consistency(ARCHS["gemma3-4b"].cfg(), dev, card)
     kmod.reset_counts()
     serving = lm_serve(ARCHS["olmoe-1b-7b"].cfg(), dev, card)
@@ -1962,6 +1996,485 @@ def lm_drive(dev, card: str) -> dict:
     print(f"[lm] phase 15: {seconds:.1f} s; SCV kernel launches on the LM path: 0 (the LM "
           f"substrate reaches no pl.pallas_call)")
     return dict(worst=worst, consistency=consistency, serving=serving, seconds=seconds)
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.transformer import leaf_paths
+
+    return sum(t.numel() * t.element_size() for _, t in leaf_paths(tree))
+
+
+def ssm_card_vs_cpu(archs, dev) -> dict:
+    """16(a): the SSM, hybrid and encoder-decoder archs' reduced configs in
+    float32, the same weights and inputs on the card and on the CPU: hidden
+    states (the encoder's output and the teacher-forced decoder for
+    whisper-small), the chunked prefill (the decoder cache for
+    whisper-small), 3 decode steps and every state leaf, within 1e-4 of
+    the largest magnitude."""
+    from repro_torch.configs.common import SHAPES
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TT
+
+    worst = {}
+    for name in SSM_ARCHS:
+        spec = archs[name]
+        cfg = spec.cfg(reduced=True)
+        params, _ = spec.init(torch.Generator().manual_seed(0), reduced=True, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (2, LM_PROMPT), generator=gen, dtype=torch.int32)
+        frames = torch.randn((2, LM_PROMPT, cfg.d_model), generator=gen)
+        prefill = spec.make_prefill_step(SHAPES["prefill_32k"], reduced=True)
+        decode = spec.make_decode_step(SHAPES["decode_32k"], reduced=True)
+
+        def run(p, d):
+            out = {}
+            if spec.kind == "encdec":
+                enc = ED.encode(p, cfg, frames.to(d))
+                out["encode"] = enc
+                out["decode_train"] = ED.decode_train(p, cfg, toks[:, :LM_DECODE_STEPS].to(d), enc)
+                state = prefill(p, {"frames": frames.to(d)})
+            else:
+                hidden = SSM.mamba2_lm_hidden if spec.kind == "mamba_lm" else HY.hidden_states
+                out["hidden"] = hidden(p, cfg, toks.to(d))[0]
+                out["prefill"] = prefill(p, {"tokens": toks.to(d)})
+                state = (SSM.init_mamba2_lm_state(cfg, 2, device=d) if spec.kind == "mamba_lm"
+                         else HY.init_state(cfg, 2, LM_PROMPT, device=d))
+            for s in range(LM_DECODE_STEPS):
+                batch = {"token": toks[:, s : s + 1].to(d),
+                         "pos": torch.full((2, 1), s, dtype=torch.int32, device=d)}
+                out[f"decode {s}"], state = decode(p, state, batch)
+            out.update((f"state {k}", v) for k, v in TT.leaf_paths(state))
+            return out
+
+        with torch.inference_mode():
+            want = run(params, torch.device("cpu"))
+            got = run(TT.params_from_jax(params, dev), dev)
+        check(set(got) == set(want), f"{name}: outputs differ in kind")
+        err = 0.0
+        for what, w in want.items():
+            g = got[what].cpu()
+            if not w.dtype.is_floating_point:
+                check(torch.equal(g, w), f"{name} {what}: card and CPU differ")
+                continue
+            e, scale = rel_err(g, w)
+            check(e <= 1e-4 * max(scale, 1e-30), f"{name} {what}: card off the CPU by {e} "
+                  f"(max |CPU| {scale})")
+            err = max(err, e / max(scale, 1e-30))
+        worst[name] = err
+        print(f"[ssm] 16(a) {name} reduced ({spec.kind}), float32: {', '.join(want)}; card "
+              f"against CPU, max err / max |CPU| {err:.2e}")
+    return worst
+
+
+def ssm_consistency(archs, dev, card) -> dict:
+    """16(b): mamba2-780m and zamba2-2.7b at full width and depth in
+    float32, B = SSM_BATCH: the last position's log-softmax from the
+    chunked ``hidden_states`` over SSM_PROMPT tokens (three SSD chunks, the
+    last one padded) against the one after SSM_PROMPT recurrent steps
+    through the launcher's captured decode (the SSD duality), within
+    SSM_TOL."""
+    from repro_torch.launch.serve import serve_fns
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TT
+
+    out = {}
+    for seed, name in enumerate(("mamba2-780m", "zamba2-2.7b"), start=4):
+        spec = archs[name]
+        cfg = dataclasses.replace(spec.cfg(), dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        t0 = time.perf_counter()
+        params, _ = spec.init(gen, device=dev)
+        n_params = sum(t.numel() for _, t in TT.leaf_paths(params))
+        toks = torch.randint(0, cfg.vocab, (SSM_BATCH, SSM_PROMPT), generator=gen, device=dev,
+                             dtype=torch.int32)
+        hidden = SSM.mamba2_lm_hidden if spec.kind == "mamba_lm" else HY.hidden_states
+        prefill_fn, decode_fn = serve_fns(spec, cfg, SSM_PROMPT + LM_MAX_NEW, dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x, _ = hidden(params, cfg, toks)
+            direct = L.unembed_logits(params["embed"], x[:, -1:], true_vocab=cfg.vocab)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            logits, state = prefill_fn(params, toks)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ld = torch.log_softmax(direct, dim=-1)
+            lp = torch.log_softmax(logits, dim=-1)
+            err = torch.where(torch.isfinite(lp), lp - ld, 0.0).abs().max().item()
+            same = (logits.argmax(-1) == direct.argmax(-1))[:, 0].tolist()
+        check(err < SSM_TOL, f"{name}: chunked against recurrent |d log-softmax| {err} >= "
+              f"{SSM_TOL}")
+        check((decode_fn.captures, decode_fn.graphs, decode_fn.replays)
+              == (1, int(dev.type == "cuda"), SSM_PROMPT - 1),
+              f"{name}: {decode_fn.captures} captures, {decode_fn.graphs} graphs, "
+              f"{decode_fn.replays} replays over {SSM_PROMPT} recurrent steps")
+        out[name] = dict(err=err, same=same)
+        chunk = (cfg.block_cfg if spec.kind == "mamba_lm" else cfg.mamba_cfg).chunk
+        print(f"[ssm] 16(b) {name} full width and depth ({n_params} params, float32), B = "
+              f"{SSM_BATCH}, {SSM_PROMPT} tokens ({-(-SSM_PROMPT // chunk)} SSD chunks of "
+              f"{chunk}, the last padded): chunked hidden_states {1e3 * (t2 - t1):.1f} "
+              f"ms against {SSM_PROMPT} recurrent steps through the launcher's captured decode "
+              f"{1e3 * (t3 - t2):.1f} ms (1 capture, {decode_fn.replays} replays, "
+              f"{decode_fn.copy_bytes} state bytes copied in): last position |d log-softmax| "
+              f"{err:.3e} (< {SSM_TOL}), argmax equal {same}; {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        del params, x, state, prefill_fn, decode_fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def whisper_consistency(spec, dev, card) -> dict:
+    """16(b): whisper-small at full width and depth in float32: a greedy
+    decode of WHISPER_TOKENS tokens from ``encode`` over WHISPER_BATCH x
+    WHISPER_FRAMES frames, against ``decode_train`` on the tokens it fed:
+    |d log-softmax| < SSM_TOL at every step, and the same argmax wherever
+    ``decode_train``'s top-1 leads its runner-up by more than twice that."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(spec.cfg(), dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    params, _ = spec.init(gen, device=dev)
+    frames = torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen, device=dev)
+    B = WHISPER_BATCH
+    with torch.inference_mode():
+        enc = ED.encode(params, cfg, frames)
+        cache = ED.init_dec_cache(params, cfg, enc, max_len=WHISPER_TOKENS)
+        tok = torch.full((B, 1), WHISPER_START, dtype=torch.int32, device=dev)
+        fed, steps = [], []
+        for t in range(WHISPER_TOKENS):
+            fed.append(tok)
+            pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+            logits, cache = ED.decode_step(params, cfg, tok, cache, pos)
+            steps.append(logits)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        fed = torch.cat(fed, dim=1)
+        lp = torch.log_softmax(torch.cat(steps, dim=1), dim=-1)
+        x = ED.decode_train(params, cfg, fed, enc)
+        ld = torch.log_softmax(L.unembed_logits(params["embed"], x, true_vocab=cfg.vocab), dim=-1)
+        err = torch.where(torch.isfinite(lp), lp - ld, 0.0).abs().max().item()
+        top2 = ld.topk(2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > 2 * SSM_TOL
+        same = lp.argmax(-1) == ld.argmax(-1)
+        held = int(decisive.sum())
+        agree = bool((same | ~decisive).all())
+    check(err < SSM_TOL, f"whisper-small: decode against decode_train |d log-softmax| {err}")
+    check(agree, "whisper-small: a greedy pick differs from decode_train's on a decisive step")
+    print(f"[ssm] 16(b) whisper-small full width and depth (float32), B = {B} x "
+          f"{WHISPER_FRAMES} frames: greedy decode of {WHISPER_TOKENS} tokens from encode "
+          f"against decode_train on the same tokens: |d log-softmax| {err:.3e} (< {SSM_TOL}); "
+          f"argmax equal on {int(same.sum())} of {same.numel()} steps ({held} decisive, all "
+          f"equal); {time.perf_counter() - t0:.1f} s [{card}]")
+    del params, enc, cache, x
+    torch.cuda.empty_cache()
+    return dict(err=err, same=int(same.sum()))
+
+
+def serve_modes(spec, cfg, served, prompts, max_len, dev) -> dict:
+    """``ServeEngine`` over the launcher's functions, once with an eager
+    decode and once with the captured one, on the same prompts: tokens,
+    logits, prefill ms per batch and decode ms per step (CUDA events
+    around each engine call), wall seconds (host clock), peak memory and
+    the capture's counts."""
+    from repro_torch.launch.serve import serve_fns
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    runs = {}
+    for mode in ("eager", "captured"):
+        prefill_fn, decode_fn = serve_fns(spec, cfg, max_len, dev, capture=mode == "captured")
+        timings = {"prefill": [], "decode": []}
+        seen = []
+
+        def timed(kind, fn):
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits, state = fn(*args)
+                end.record()
+                timings[kind].append((start, end))
+                seen.append(logits)
+                return logits, state
+            return call
+
+        engine = ServeEngine(served, timed("prefill", prefill_fn), timed("decode", decode_fn),
+                             EngineConfig(max_batch=LM_MAX_BATCH), device=dev)
+        for rid, pr in enumerate(prompts):
+            engine.submit(Request(rid=rid, prompt=pr.astype(np.int32), max_new=LM_MAX_NEW))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(done) == len(prompts) and all(len(r.out) == LM_MAX_NEW for r in done),
+              f"{cfg.name} {mode}: {[len(r.out) for r in done]} tokens per request")
+        check(all(0 <= t < cfg.vocab for r in done for t in r.out),
+              f"{cfg.name} {mode}: token off vocab")
+        runs[mode] = dict(
+            tokens=[r.out for r in done], logits=seen, wall=wall,
+            n_tokens=sum(len(r.out) for r in done),
+            peak=torch.cuda.max_memory_allocated() - base,
+            prefill_ms=[s.elapsed_time(e) for s, e in timings["prefill"]],
+            decode_ms=float(np.median([s.elapsed_time(e) for s, e in timings["decode"]])),
+            n_decode=len(timings["decode"]),
+            captures=getattr(decode_fn, "captures", 0), graphs=getattr(decode_fn, "graphs", 0),
+            replays=getattr(decode_fn, "replays", 0), copy_bytes=getattr(decode_fn, "copy_bytes", 0))
+        del engine, prefill_fn, decode_fn
+        torch.cuda.empty_cache()
+    eager, cap = runs["eager"], runs["captured"]
+    check(eager["tokens"] == cap["tokens"], f"{cfg.name}: captured decode picks other tokens "
+          f"than eager")
+    # every logit finite (the -1e30 past the true vocab is the reference's mask)
+    check(all(bool(torch.isfinite(t).all()) for m in runs.values() for t in m["logits"]),
+          f"{cfg.name}: non-finite logits")
+    # the replay runs the eager step's kernels in its order: the same bits
+    check(len(eager["logits"]) == len(cap["logits"]) and all(
+        torch.equal(a, b) for a, b in zip(eager["logits"], cap["logits"])),
+        f"{cfg.name}: captured logits differ from eager")
+    return runs
+
+
+def decode_profile(name, step, params, state, dev, card) -> dict:
+    """One decode step of ``step`` at batch LM_MAX_BATCH on ``state``
+    (written in place: its values only feed the timing), eager and through
+    ``CapturedDecode``: the host's enqueue ms a step (host clock over
+    PROFILE_STEPS eager steps, no sync inside), and under
+    ``torch.profiler`` the kernels a step, the device-busy ms a step (the
+    kernels' summed time) and the span from the first kernel's start to
+    the last one's end, a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import CapturedDecode
+
+    tok = torch.zeros((LM_MAX_BATCH, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((LM_MAX_BATCH, 1), 16, dtype=torch.int32, device=dev)
+    captured = CapturedDecode(step)
+    out = {}
+    with torch.inference_mode():
+        _, own = captured(params, state, tok, pos)
+        step(params, state, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step(params, state, tok, pos)
+        out["host_ms"] = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
+        torch.cuda.synchronize()
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        for mode, fn in (("eager", lambda: step(params, state, tok, pos)),
+                         ("replay", lambda: captured(params, own, tok, pos))):
+            with profile(activities=activities) as prof:
+                for _ in range(PROFILE_STEPS):
+                    fn()
+                torch.cuda.synchronize()
+            kern = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+            busy = sum(e.device_time_total for e in kern) / 1e3
+            span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
+                    ) / 1e3 if kern else 0.0
+            out[mode] = (len(kern) / PROFILE_STEPS, busy / PROFILE_STEPS, span / PROFILE_STEPS)
+    (ek, eb, es), (rk, rb, rs) = out["eager"], out["replay"]
+    print(f"[ssm] 16(c) {name} one decode step under torch.profiler ({PROFILE_STEPS} steps): "
+          f"eager host enqueue {out['host_ms']:.3f} ms a step, {ek:.0f} kernels, device busy "
+          f"{eb:.3f} ms over a span of {es:.3f}; replayed {rk:.0f} kernels, device busy "
+          f"{rb:.3f} ms over a span of {rs:.3f} ({100 * rb / max(rs, 1e-9):.0f}% busy) [{card}]")
+    del captured, own
+    return out
+
+
+def print_serving(spec, cfg, runs, n_params, weight_bytes, bound, init_s, card):
+    eager, cap = runs["eager"], runs["captured"]
+    name = spec.name
+    print(f"[ssm] 16(c) {name} full width and depth ({spec.kind}): {n_params} params drawn on "
+          f"the card, served in {cfg.dtype} ({weight_bytes} weight bytes; init and cast "
+          f"{init_s:.1f} s); {len(eager['tokens'])} requests x {LM_SERVE_PROMPT} prompt "
+          f"tokens, {LM_MAX_NEW} new, B = {LM_MAX_BATCH} [{card}]")
+    for mode, m in (("eager", eager), ("captured", cap)):
+        print(f"[ssm] 16(c) {name} {mode}: prefill ms per batch (CUDA events) "
+              f"{', '.join(f'{ms:.3f}' for ms in m['prefill_ms'])}; decode ms per step "
+              f"{m['decode_ms']:.3f} (median of {m['n_decode']}); {m['n_tokens']} tokens in "
+              f"{m['wall']:.3f} s, {m['n_tokens'] / m['wall']:.1f} tokens/s (host clock); "
+              f"captures {m['captures']}, graphs {m['graphs']}, replays {m['replays']}, state "
+              f"bytes copied in {m['copy_bytes']}; peak memory {m['peak']} bytes over the "
+              f"weights (max_memory_allocated) [{card}]")
+    print(f"[ssm] 16(c) {name}: captured and eager give the same tokens and logits equal bit "
+          f"for bit ({len(cap['logits'])} calls); decode bound {bound['ms']:.3f} ms a step "
+          f"({bound['what']}, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); captured decode "
+          f"{cap['decode_ms'] / bound['ms']:.2f}x the bound, eager {eager['decode_ms'] / bound['ms']:.2f}x "
+          f"[{card}]")
+
+
+def ssm_serve(spec, seed, dev, card) -> dict:
+    """16(c) for a recurrent arch at full width and depth in bf16: served
+    through ``ServeEngine`` with the launcher's functions, eager and
+    captured, on the same SSM_SERVE_REQUESTS prompts."""
+    from repro_torch.launch.serve import serve_fns
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TT
+
+    cfg = spec.cfg()
+    t0 = time.perf_counter()
+    params, _ = spec.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = sum(t.numel() for _, t in TT.leaf_paths(params))
+    served = SSM.serving_params(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(served)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, LM_SERVE_PROMPT) for _ in range(SSM_SERVE_REQUESTS)]
+    max_len = LM_SERVE_PROMPT + LM_MAX_NEW
+    runs = serve_modes(spec, cfg, served, prompts, max_len, dev)
+    # a step reads every weight once (the shared block once a call when it
+    # does not stay in L2), reads the whole state and writes the recurrent
+    # part of it
+    if spec.kind == "hybrid":
+        state = HY.init_state(cfg, LM_MAX_BATCH, max_len, device="meta")
+        reread = (cfg.n_shared_calls - 1) * tree_bytes(served["shared"])
+        written = tree_bytes(state["ssm"])
+    else:
+        state = SSM.init_mamba2_lm_state(cfg, LM_MAX_BATCH, device="meta")
+        reread, written = 0, tree_bytes(state)
+    read = tree_bytes(state)
+    ms = (weight_bytes + reread + read + written) / HBM_BYTES_PER_S * 1e3
+    what = (f"weights {weight_bytes} + shared block re-read {reread} + state read {read} + "
+            f"written {written} bytes")
+    print_serving(spec, cfg, runs, n_params, weight_bytes, dict(ms=ms, what=what),
+                  init_s, card)
+    _, step = serve_fns(spec, cfg, max_len, dev, capture=False)
+    state = (HY.init_state(cfg, LM_MAX_BATCH, max_len, device=dev) if spec.kind == "hybrid"
+             else SSM.init_mamba2_lm_state(cfg, LM_MAX_BATCH, device=dev))
+    decode_profile(spec.name, step, served, state, dev, card)
+    del served, state
+    torch.cuda.empty_cache()
+    return dict(eager_ms=runs["eager"]["decode_ms"], captured_ms=runs["captured"]["decode_ms"],
+                bound_ms=ms)
+
+
+def lm_capture(spec, dev, card) -> dict:
+    """16(c) for olmoe-1b-7b (phase 15's weights and first batch): the
+    launcher's captured decode against its eager one."""
+    from repro_torch.launch.serve import serve_fns
+    from repro_torch.models import transformer as TT
+
+    cfg = spec.cfg()
+    t0 = time.perf_counter()
+    params, _ = TT.init_lm(torch.Generator(device=dev).manual_seed(3), cfg, device=dev)
+    n_params = sum(t.numel() for _, t in TT.leaf_paths(params))
+    served = TT.serving_params(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(served)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, LM_SERVE_PROMPT) for _ in range(LM_MAX_BATCH)]
+    max_len = LM_SERVE_PROMPT + LM_MAX_NEW
+    runs = serve_modes(spec, cfg, served, prompts, max_len, dev)
+    cache = TT.init_cache(cfg, LM_MAX_BATCH, max_len, device="meta")
+    ms = (weight_bytes + tree_bytes(cache)) / HBM_BYTES_PER_S * 1e3
+    what = f"weights {weight_bytes} + cache read {tree_bytes(cache)} bytes"
+    print_serving(spec, cfg, runs, n_params, weight_bytes, dict(ms=ms, what=what),
+                  init_s, card)
+    prefill_fn, step = serve_fns(spec, cfg, max_len, dev, capture=False)
+    with torch.inference_mode():
+        _, state = prefill_fn(served, torch.zeros((LM_MAX_BATCH, 16), dtype=torch.int32,
+                                                  device=dev))
+    decode_profile(spec.name, step, served, state, dev, card)
+    del served, state
+    torch.cuda.empty_cache()
+    return dict(eager_ms=runs["eager"]["decode_ms"], captured_ms=runs["captured"]["decode_ms"],
+                bound_ms=ms)
+
+
+def whisper_serve(spec, dev, card) -> dict:
+    """16(c) for whisper-small in bf16: WHISPER_TOKENS greedy decode steps
+    from one encode over WHISPER_BATCH x WHISPER_FRAMES frames, eager and
+    through ``CapturedDecode``: the same tokens, ms per step."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.serve.engine import CapturedDecode
+
+    cfg = spec.cfg()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params, _ = spec.init(gen, device=dev)
+    served = ED.serving_params(params, cfg)
+    del params
+    frames = torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen, device=dev)
+
+    def step(p, s, t, pos):
+        return ED.decode_step(p, cfg, t, s, pos)
+
+    out = {}
+    with torch.inference_mode():
+        enc = ED.encode(served, cfg, frames)
+        for mode in ("eager", "captured"):
+            fn = CapturedDecode(step) if mode == "captured" else step
+            cache = ED.init_dec_cache(served, cfg, enc, max_len=WHISPER_TOKENS)
+            tok = torch.full((WHISPER_BATCH, 1), WHISPER_START, dtype=torch.int32, device=dev)
+            picked, ms = [], []
+            for t in range(WHISPER_TOKENS):
+                pos = torch.full((WHISPER_BATCH, 1), t, dtype=torch.int32, device=dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits, cache = fn(served, cache, tok, pos)
+                end.record()
+                tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                picked.append(tok)
+                ms.append((start, end))
+            torch.cuda.synchronize()
+            out[mode] = dict(tokens=torch.cat(picked, dim=1).cpu(),
+                             ms=float(np.median([s.elapsed_time(e) for s, e in ms[1:]])))
+        xkv = tree_bytes({"xk": cache["xk"], "xv": cache["xv"]})
+    decode_profile(spec.name, step, served, cache, dev, card)
+    check(torch.equal(out["eager"]["tokens"], out["captured"]["tokens"]),
+          "whisper-small: captured decode picks other tokens than eager")
+    dec = tree_bytes({k: served[k] for k in ("dec", "ln_dec", "embed")})
+    ms = (dec + xkv) / HBM_BYTES_PER_S * 1e3
+    print(f"[ssm] 16(c) whisper-small ({cfg.dtype}), B = {WHISPER_BATCH} x {WHISPER_FRAMES} "
+          f"frames, {WHISPER_TOKENS} greedy steps: decode ms per step eager "
+          f"{out['eager']['ms']:.3f}, captured {out['captured']['ms']:.3f} (median, CUDA events), "
+          f"the same tokens; bound {ms:.3f} ms a step (decoder and unembed weights {dec} + "
+          f"cross K/V {xkv} bytes) [{card}]")
+    del served, enc, cache
+    torch.cuda.empty_cache()
+    return dict(eager_ms=out["eager"]["ms"], captured_ms=out["captured"]["ms"], bound_ms=ms)
+
+
+def ssm_drive(dev, card: str) -> dict:
+    """Phase 16: the SSM, hybrid and encoder-decoder families, and the
+    launcher's captured decode (no SCV kernel on the path)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+
+    t0 = time.perf_counter()
+    kmod.reset_counts()
+    worst = ssm_card_vs_cpu(ARCHS, dev)
+    consistency = ssm_consistency(ARCHS, dev, card)
+    whisper = whisper_consistency(ARCHS["whisper-small"], dev, card)
+    serving = {name: ssm_serve(ARCHS[name], seed, dev, card)
+               for seed, name in enumerate(SSM_SERVE_ARCHS, start=9)}
+    serving["olmoe-1b-7b"] = lm_capture(ARCHS["olmoe-1b-7b"], dev, card)
+    serving["whisper-small"] = whisper_serve(ARCHS["whisper-small"], dev, card)
+    launches = (kmod.launches, kmod.scalar_launches)
+    check(launches == (0, 0), f"phase 16 launched SCV kernels: {launches}")
+    seconds = time.perf_counter() - t0
+    print(f"[ssm] phase 16: {seconds:.1f} s; SCV kernel launches: 0 (ssm.py, hybrid.py and "
+          f"encdec.py reach no pl.pallas_call)")
+    return dict(worst=worst, consistency=consistency, whisper=whisper, serving=serving,
+                seconds=seconds)
 
 
 def main() -> int:
@@ -2524,6 +3037,9 @@ def main() -> int:
 
     # -- 15. the decoder-LM path ------------------------------------------------
     lm_drive(dev, smi)
+
+    # -- 16. the SSM, hybrid and encoder-decoder families; captured decode ---------
+    ssm_drive(dev, smi)
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

@@ -1,15 +1,19 @@
 """Architecture registry: ``--arch <id>`` resolves here.  ``ARCHS`` holds
-the decoder LMs the port runs; the SSM, hybrid and encoder-decoder archs
-join it with their models (``ROADMAP.md`` §1 item 6)."""
+the reference's ten architectures: the seven decoder LMs, the SSM
+(mamba2-780m), the hybrid (zamba2-2.7b) and the encoder-decoder
+(whisper-small)."""
 from repro_torch.configs import (
     deepseek_v2_lite,
     gcn_paper,
     gemma2_27b,
     gemma3_4b,
     internvl2_76b,
+    mamba2_780m,
     olmoe_1b_7b,
     qwen15_32b,
     starcoder2_15b,
+    whisper_small,
+    zamba2_2p7b,
 )
 
 ARCHS = {
@@ -21,7 +25,10 @@ ARCHS = {
         qwen15_32b,
         olmoe_1b_7b,
         deepseek_v2_lite,
+        whisper_small,
+        mamba2_780m,
         internvl2_76b,
+        zamba2_2p7b,
     )
 }
 

@@ -1,26 +1,29 @@
 """Architecture registry machinery.
 
 Port of ``src/repro/configs/common.py``.  Each ``configs/<arch>.py``
-exports ``spec: ArchSpec``, which binds a model family to its full-size
-config, a reduced same-family config for small runs, and the input
-shapes that apply.  The port runs the decoder LM (``kind="lm"``); a
-family it does not hold yet raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it, and so does ``make_train_step``.
-The abstract-input helpers (``input_specs``, ``state_specs``) wait for
-the dry-run slice.
+exports ``spec: ArchSpec``, which binds a model family (``lm``,
+``mamba_lm``, ``hybrid``, ``encdec``) to its full-size config, a reduced
+same-family config for small runs, and the input shapes that apply.
+Every family inits, computes its loss forward and makes its prefill and
+decode steps; ``make_train_step`` raises, naming the ``ROADMAP.md`` item
+that brings the training stack.  The abstract-input helpers
+(``input_specs``, ``state_specs``) wait for the dry-run slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Any, Callable
 
 import numpy as np
 
-#: What brings each family the port does not hold yet (``ROADMAP.md``).
-_NOT_PORTED = {
-    "mamba_lm": "ROADMAP.md §1 item 6 (ssm.py, hybrid.py, encdec.py and their configs)",
-    "hybrid": "ROADMAP.md §1 item 6 (ssm.py, hybrid.py, encdec.py and their configs)",
-    "encdec": "ROADMAP.md §1 item 6 (ssm.py, hybrid.py, encdec.py and their configs)",
+#: Each family's module under ``repro_torch.models`` and its init, loss
+#: and decode functions there.
+_FAMILIES = {
+    "lm": ("transformer", "init_lm", "train_loss", "decode_step"),
+    "mamba_lm": ("ssm", "init_mamba2_lm", "mamba2_lm_loss", "mamba2_lm_decode"),
+    "hybrid": ("hybrid", "init_hybrid", "train_loss", "decode_step"),
+    "encdec": ("encdec", "init_encdec", "train_loss", "decode_step"),
 }
 _TRAINING = "ROADMAP.md §1 item 6 (the training stack: optim/, train/, data/, launch/train.py)"
 
@@ -56,25 +59,22 @@ class ArchSpec:
     def cfg(self, reduced=False):
         return self.reduced if reduced else self.config
 
-    def _family(self):
-        if self.kind == "lm":
-            from repro_torch.models import transformer
-
-            return transformer
-        if self.kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{self.name}: kind {self.kind!r} is not ported yet; {_NOT_PORTED[self.kind]}"
-            )
-        raise ValueError(self.kind)
-
     # -- family dispatch ---------------------------------------------------
+    def _entry(self, role: str) -> Callable:
+        """The family's ``init``, ``loss`` or ``decode`` function."""
+        if self.kind not in _FAMILIES:
+            raise ValueError(self.kind)
+        module, *names = _FAMILIES[self.kind]
+        mod = importlib.import_module(f"repro_torch.models.{module}")
+        return getattr(mod, names[("init", "loss", "decode").index(role)])
+
     def init(self, generator, reduced=False, device="cuda"):
         """(params, specs) on ``device`` (default the card; raises
         without one), drawn from ``generator``."""
-        return self._family().init_lm(generator, self.cfg(reduced), device=device)
+        return self._entry("init")(generator, self.cfg(reduced), device=device)
 
     def loss_fn(self, reduced=False) -> Callable:
-        train_loss = self._family().train_loss
+        train_loss = self._entry("loss")
         cfg = self.cfg(reduced)
         return lambda p, batch: train_loss(p, cfg, batch)
 
@@ -82,18 +82,40 @@ class ArchSpec:
         raise NotImplementedError(f"{self.name}: training is not ported yet; {_TRAINING}")
 
     def make_prefill_step(self, shape: Shape, reduced=False):
-        prefill = self._family().prefill
         cfg = self.cfg(reduced)
         S = shape.seq_len if not reduced else min(shape.seq_len, 64)
+        if self.kind == "lm":
+            from repro_torch.models.transformer import prefill
 
-        def step(params, batch):
-            return prefill(params, cfg, batch["tokens"],
-                           extra_embed=batch.get("extra_embed"), max_len=S)
+            def step(params, batch):
+                return prefill(params, cfg, batch["tokens"],
+                               extra_embed=batch.get("extra_embed"), max_len=S)
 
+        elif self.kind in ("mamba_lm", "hybrid"):
+            from repro_torch.models.layers import unembed_logits
+
+            if self.kind == "mamba_lm":
+                from repro_torch.models.ssm import mamba2_lm_hidden as hidden
+            else:
+                from repro_torch.models.hybrid import hidden_states as hidden
+
+            def step(params, batch):
+                x, _ = hidden(params, cfg, batch["tokens"])
+                return unembed_logits(params["embed"], x[:, -1:], true_vocab=cfg.vocab)
+
+        elif self.kind == "encdec":
+            from repro_torch.models.encdec import encode, init_dec_cache
+
+            def step(params, batch):
+                enc = encode(params, cfg, batch["frames"])
+                return init_dec_cache(params, cfg, enc, max_len=8)
+
+        else:
+            raise ValueError(self.kind)
         return step
 
     def make_decode_step(self, shape: Shape, reduced=False):
-        decode_step = self._family().decode_step
+        decode_step = self._entry("decode")
         cfg = self.cfg(reduced)
 
         def step(params, state, batch):

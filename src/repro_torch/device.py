@@ -8,6 +8,8 @@ would report CPU numbers under the GPU's name.  Callers that want the CPU
 """
 from __future__ import annotations
 
+import gc
+
 import torch
 
 
@@ -26,3 +28,30 @@ def resolve_device(device) -> torch.device:
             "CUDA device(s) are present"
         )
     return dev
+
+
+def capture_graph(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream, fn):
+    """Capture ``fn()`` into ``graph`` on ``stream``; returns what ``fn``
+    returns (the graph's static outputs).
+
+    ``capture_begin``/``capture_end``, not ``torch.cuda.graph``: that
+    context also synchronises the device, collects garbage and empties the
+    allocator's cache first, which a capture on a stream of its own does
+    not need (on the H100 it made each capture several times slower).  Nor
+    may the garbage collector run inside it: captures and the objects that
+    own them can refer to each other, so only a collection frees some CUDA
+    graphs, and freeing one while this capture is underway invalidates it.
+    A step that cannot be captured (a host sync inside it) raises here.
+    """
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                return fn()
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()

@@ -20,7 +20,6 @@ reference's weights over.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import math
 import time
 from typing import Optional
@@ -43,7 +42,7 @@ from repro_torch.core.scv import (
     plan_from_tiles_bucketed,
     tile_nnz_histogram,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import capture_graph, resolve_device
 
 
 @dataclasses.dataclass
@@ -511,29 +510,12 @@ class _Capture:
             self.first = forward(params, cfg, g, x)
         n_before = len(kmod.captured)
         self.graph = torch.cuda.CUDAGraph()
-        # capture_begin/end, not torch.cuda.graph: that context also
-        # synchronises the device, collects garbage and empties the
-        # allocator's cache first, which a capture on a stream of its own
-        # does not need (on the H100 it made each capture several times
-        # slower)
-        # nor may the garbage collector run inside it: a dropped engine's
-        # captures and their forward refer to each other, so only a
-        # collection frees their CUDA graphs, and freeing one while this
-        # capture is underway invalidates it
-        collecting = gc.isenabled()
-        gc.disable()
         try:
-            with torch.cuda.stream(side):
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.out = forward(self.params, cfg, self.g, self.x)
-                finally:
-                    self.graph.capture_end()
+            self.out = capture_graph(self.graph, side,
+                                     lambda: forward(self.params, cfg, self.g, self.x))
             self.launches = [(seg_of[id(r)], body, threshold)
                              for r, body, threshold in kmod.captured[n_before:]]
         finally:
-            if collecting:
-                gc.enable()
             del kmod.captured[n_before:]
         cur.wait_stream(side)
         self.first.record_stream(cur)

@@ -70,6 +70,21 @@ def make_param(key: ParamInit, shape, axes):
     return key.normal(shape).div_(math.sqrt(max(1, shape[0]))), axes
 
 
+def cast_params(params, dtype, keep) -> dict:
+    """``params`` with every leaf cast to ``dtype``, except those whose
+    ``"a/b/c"`` path ``keep(path)`` holds (left as they are)."""
+
+    def walk(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            out[k] = walk(v, path) if isinstance(v, dict) else (
+                v if keep(path) else v.to(dtype))
+        return out
+
+    return walk(params, "")
+
+
 def split_tree(tree):
     """Split {name: (tensor, axes)} nested dict -> (params, specs)."""
     if isinstance(tree, tuple) and len(tree) == 2 and not isinstance(tree[0], dict):

@@ -194,7 +194,11 @@ def init_lm(generator: Optional[torch.Generator], cfg: LMConfig, device="cuda"):
 
 def params_from_jax(params, device="cuda") -> dict:
     """The reference's param tree (nested dicts of arrays, as numpy or
-    anything ``np.asarray`` takes) as the port's tensors, leaf for leaf."""
+    anything ``np.asarray`` takes) as the port's tensors, leaf for leaf.
+    It carries every family's tree as it is (the SSM, hybrid and
+    encoder-decoder ones too, the hybrid's ``[n_shared_calls,
+    share_every, ...]`` mamba leaves among them): no leaf is renamed or
+    reshaped."""
     dev = resolve_device(device)
     if isinstance(params, dict):
         return {k: params_from_jax(v, dev) for k, v in params.items()}
@@ -208,21 +212,12 @@ def serving_params(params, cfg: LMConfig) -> dict:
     so does the embedding table when ``embed_scale`` scales its rows in
     float32 before the cast."""
 
-    def cast(path, t):
+    def keep(path):
         if any(part.startswith("ln_") for part in path.split("/")):
-            return t
-        if path == "embed/table" and cfg.embed_scale:
-            return t
-        return t.to(cfg.dtype)
+            return True
+        return path == "embed/table" and cfg.embed_scale
 
-    def walk(tree, prefix=""):
-        return {
-            k: walk(v, f"{prefix}/{k}" if prefix else k) if isinstance(v, dict)
-            else cast(f"{prefix}/{k}" if prefix else k, v)
-            for k, v in tree.items()
-        }
-
-    return walk(params)
+    return L.cast_params(params, cfg.dtype, keep)
 
 
 # ---------------------------------------------------------------------------

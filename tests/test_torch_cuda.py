@@ -10,8 +10,10 @@ card by the sharding executor, the layouts the autotuner can pick (T =
 32 and one-rung ladders) and its stage 2 timing the kernel chain, the
 forward captured in a CUDA graph (against eager, bit for bit on
 integers, and through the serving engine), every aggregation backend
-against the SCV chain, and the decoder LM (prefill and decode, caches
-included) on the card against the same code on the CPU.
+against the SCV chain, the decoder LM (prefill and decode, caches
+included) on the card against the same code on the CPU, and the
+launcher's decode step captured in a CUDA graph against the eager one
+(the SSM, the hybrid and a decoder LM, bit for bit).
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -845,3 +847,67 @@ def test_no_garbage_collection_inside_a_capture(dev):
         torch.cuda.synchronize()
         assert collecting == [True, False] and gc.isenabled()
         assert torch.equal(got, gnn_forward(params, cfg, g, x))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b", "olmoe-1b-7b"])
+def test_captured_decode_equals_eager_on_card(dev, arch):
+    """The launcher's captured decode on the card, reduced config in bf16:
+    one CUDA graph for the batch size; over the prefill (recurrent for the
+    SSM and the hybrid, a replay a token) and 4 decode steps its logits
+    and every state leaf equal the eager step's bit for bit, and the state
+    it returns is the one it owns."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import serve_fns
+    from repro_torch.models import transformer as TT
+
+    spec = ARCHS[arch]
+    cfg = dataclasses.replace(spec.cfg(reduced=True), dtype=torch.bfloat16)
+    params, _ = spec.init(torch.Generator().manual_seed(0), reduced=True, device=dev)
+    toks = torch.randint(0, cfg.vocab, (3, 14), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32).to(dev)
+    runs = {}
+    with torch.inference_mode():
+        for capture in (False, True):
+            prefill_fn, decode_fn = serve_fns(spec, cfg, 20, dev, capture=capture)
+            logits, state = prefill_fn(params, toks[:, :10])
+            outs = [logits]
+            for s in range(4):
+                pos = torch.full((3, 1), 10 + s, dtype=torch.int32, device=dev)
+                logits, out = decode_fn(params, state, toks[:, 10 + s : 11 + s], pos)
+                assert out is state or s == 0 and spec.kind == "lm"
+                state = out
+                outs.append(logits)
+            runs[capture] = outs, dict(TT.leaf_paths(state))
+        assert (decode_fn.captures, decode_fn.graphs) == (1, 1)
+    (want, want_state), (got, got_state) = runs[False], runs[True]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert set(got_state) == set(want_state)
+    assert all(torch.equal(got_state[k], w) for k, w in want_state.items())
+
+
+def test_captured_decode_binds_params_and_state(dev):
+    """A captured decode refuses another params tree, and a step that
+    returns a new state rather than writing the one it was given."""
+    from repro_torch.serve.engine import CapturedDecode
+
+    params = {"w": torch.ones(4, device=dev)}
+    state = {"h": torch.zeros((2, 4), device=dev)}
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+
+    def step(p, s, t, pos):
+        s["h"].add_(p["w"] * pos)
+        return s["h"].sum(-1, keepdim=True), s
+
+    with torch.inference_mode():
+        fn = CapturedDecode(step)
+        _, own = fn(params, state, tok, tok + 1)
+        logits, own2 = fn(params, own, tok, tok + 2)
+        assert own2 is own and own is not state
+        assert torch.equal(logits[:, 0], torch.full((2,), 12.0, device=dev))
+        with pytest.raises(ValueError, match="bound to the params"):
+            fn({"w": params["w"].clone()}, own, tok, tok)
+        with pytest.raises(RuntimeError, match="in place"):
+            CapturedDecode(lambda p, s, t, pos: (s["h"].sum(-1, keepdim=True),
+                                                 {"h": s["h"] + 1}))(params, state, tok, tok)

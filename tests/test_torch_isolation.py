@@ -56,7 +56,9 @@ def test_port_has_modules():
             "repro_torch.configs.gemma3_4b", "repro_torch.configs.qwen15_32b",
             "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v2_lite",
             "repro_torch.configs.internvl2_76b", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve", "repro_torch.models.ssm", "repro_torch.models.hybrid",
+            "repro_torch.models.encdec", "repro_torch.configs.mamba2_780m",
+            "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.whisper_small"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],

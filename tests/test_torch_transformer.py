@@ -237,20 +237,29 @@ def test_config_field_for_field(arch):
 
 
 def test_registry():
-    assert sorted(T_ARCHS) == LM_ARCHS
+    """The port's ``ARCHS`` holds the reference's ten architectures, each
+    of the reference's kind; an unknown name raises."""
+    assert sorted(T_ARCHS) == sorted(J_ARCHS)
+    assert {a: s.kind for a, s in T_ARCHS.items()} == {a: s.kind for a, s in J_ARCHS.items()}
     with pytest.raises(KeyError):
-        t_get("mamba2-780m")
+        t_get("mamba2-781m")
 
 
 def test_unported_kinds_and_training_raise():
+    """Every kind inits on ``meta`` (the SSM, hybrid and encoder-decoder
+    ones since they were ported); training raises for every kind, naming
+    the training stack; an unknown kind is refused."""
     from repro_torch.configs.common import ArchSpec
 
-    spec = dataclasses.replace(T_ARCHS["olmoe-1b-7b"], kind="mamba_lm")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        spec.init(None, reduced=True, device="meta")
-    with pytest.raises(NotImplementedError, match="training"):
-        T_ARCHS["olmoe-1b-7b"].make_train_step()
-    assert isinstance(spec, ArchSpec)
+    for name, spec in T_ARCHS.items():
+        params, _ = spec.init(None, reduced=True, device="meta")
+        assert all(t.device.type == "meta" for _, t in TT.leaf_paths(params)), name
+        with pytest.raises(NotImplementedError, match="training"):
+            spec.make_train_step()
+    bad = dataclasses.replace(T_ARCHS["olmoe-1b-7b"], kind="gnn")
+    with pytest.raises(ValueError):
+        bad.init(None, reduced=True, device="meta")
+    assert isinstance(bad, ArchSpec)
 
 
 def test_init_defaults_to_the_card():
