@@ -48,10 +48,15 @@ Phases, each of which fails the run on error:
    on its plans, also under the thread rule it does not keep (the widest
    block within 48 KB; measured only, and the same bits).
 8. The gcn-paper forward and 20 SGD steps of training on the 8,192-node
-   graph, through the kernels and the autograd Function: step 0's
-   gradients are held against plain autograd through the plain version
-   (within 1e-4 of each gradient's largest magnitude), and so are the
-   arxiv-scale graph's; the loss must fall.
+   graph, through the kernels and the autograd Function, whose backward
+   runs dZ = Âᵀ g through the same kernels over the transposed plan (built
+   at the first backward): step 0's gradients, computed twice, must give
+   the same bits, and are held against plain autograd through the plain
+   version (within 1e-4 of each gradient's largest magnitude), and so are
+   the arxiv-scale graph's; the loss must fall; every forward and backward
+   launch is counted.  The backward's dZ chain alone is timed on both
+   graphs against its bound and the plain backward it replaced
+   (``index_add_``), and held against that (1e-5).
 9. The scalar body through the public op (``body="scalar"``).
 10. Streaming deltas on the arxiv-scale plan, on the card (T = 64, the
     engine's ladder (8, 32, 128)): 16 deltas of 64 edges (value updates,
@@ -182,15 +187,32 @@ Phases, each of which fails the run on error:
     beside each step's bound (weights, and the state, read once at the
     card's memory rate).
 
-Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14, 15 and 16 sets the
+17. The training stack (``optim/adam.py``, ``data/pipeline.py``,
+    ``train/checkpoint.py``, ``train/fault.py``, ``launch/train.py``,
+    ``ArchSpec.make_train_step`` with remat), which reaches no SCV kernel.
+    (a) One train step of each of the ten archs' reduced configs, the same
+    weights and batch on the card and on the CPU, float32 (TF32 off;
+    ``qwen1.5-32b`` with ``microbatch=2``, ``mamba2-780m`` with bf16 params
+    and a float32 master): the loss, every gradient leaf and every new
+    param and Adam leaf within 1e-4 of the largest magnitude (1e-2 in
+    bf16).  (b) ``mamba2-780m`` at full width and depth (780,382,464
+    params) in float32 through ``launch/train.py``'s functions, B = 4, S =
+    512: a warm-up step and 8 more; the loss must fall; ms per step (CUDA
+    events), tokens/s (host clock), the Adam update alone and peak memory
+    beside their bounds.  (c) ``launch/train.py``'s ``main`` on the card:
+    8 steps against 4, a checkpoint, ``--resume`` and 4 more, final
+    losses within 1e-5 relative (whether the bits agree is printed).
+
+Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 sets the
 kernels' launch counts to 0 just before it drives its path and reads them
-just after (phases 15 and 16 require none).  The line before the last is a JSON
+just after (phases 15, 16 and 17 require none).  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -201,6 +223,207 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+def train_card_vs_cpu(archs, dev) -> dict:
+    """17(a): one ``make_train_step`` step of each arch's reduced config
+    from the same weights (the port's seeded init, copied to the card) and
+    the same ``data/pipeline.py`` batch, on the card and on the CPU: the
+    loss, every gradient leaf of ``spec.loss_fn``, and every leaf of the
+    new params and of Adam's ``m``, ``v`` (and ``master``) within
+    ``TRAIN_TOL`` of the largest magnitude (params: of max(1, it)).
+    ``TRAIN_MICRO_ARCH`` steps with ``microbatch=2``; ``TRAIN_MASTER_ARCH``
+    with bf16 params and a float32 master (``TRAIN_TOL_BF16``)."""
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.adam import AdamConfig, init_adam
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    cpu = torch.device("cpu")
+    worst = {}
+    for name, spec in archs.items():
+        cfg = spec.cfg(reduced=True)
+        micro = 2 if name == TRAIN_MICRO_ARCH else 1
+        master = name == TRAIN_MASTER_ARCH
+        params, _ = spec.init(torch.Generator().manual_seed(0), reduced=True, device=cpu)
+        if master:
+            params = tree_map(lambda t: t.to(torch.bfloat16), params)
+        batch = make_batch_fn(spec, cfg, TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ, cpu)(0)
+        step = spec.make_train_step(AdamConfig(**TRAIN_SMALL_ADAM), reduced=True,
+                                    microbatch=micro)
+        loss_fn = spec.loss_fn(reduced=True)
+
+        def run(p, d):
+            b = {k: v.to(d) for k, v in batch.items()}
+            flat = [t.detach().requires_grad_(True) for t in leaves(p)]
+            loss = loss_fn(unflatten(p, flat), b)
+            out = {"loss": loss.detach()}
+            out.update((f"grad {i}", g) for i, g in enumerate(torch.autograd.grad(loss, flat)))
+            p2, st2, metrics = step(p, init_adam(p, master_weights=master), b)
+            out["step loss"] = metrics["loss"]
+            trees = [("params", p2), ("m", st2["m"]), ("v", st2["v"])]
+            if master:
+                trees.append(("master", st2["master"]))
+            for what, tree in trees:
+                out.update((f"{what} {i}", t) for i, t in enumerate(leaves(tree)))
+            return out
+
+        want = run(params, cpu)
+        got = run(tree_map(lambda t: t.to(dev), params), dev)
+        tol = TRAIN_TOL_BF16 if master else TRAIN_TOL
+        err = 0.0
+        for what, w in want.items():
+            g = got[what].float().cpu()
+            w = w.float()
+            e, scale = rel_err(g, w)
+            scale = max(1.0, scale) if what.startswith(("params", "master")) else scale
+            check(e <= tol * max(scale, 1e-30), f"{name} {what}: card off the CPU by {e} "
+                  f"(max |CPU| {scale})")
+            err = max(err, e / max(scale, 1e-30))
+        worst[name] = err
+        mode = ("microbatch 2" if micro > 1 else "bf16 params, float32 master" if master
+                else "float32")
+        print(f"[train] 17(a) {name} reduced ({spec.kind}, {mode}): "
+              f"loss {float(want['loss']):.4f}; "
+              f"loss, {sum(k.startswith('grad') for k in want)} gradient leaves and the new "
+              f"params and Adam leaves, card against CPU, max err / max |CPU| {err:.2e}")
+    return worst
+
+
+def train_full(spec, dev, card: str) -> dict:
+    """17(b): ``TRAIN_ARCH`` at full width and depth in float32 through
+    ``launch/train.py``'s own functions (``init_train_state``,
+    ``make_batch_fn``) and ``make_train_step``: one warm-up step, then
+    ``TRAIN_FULL_STEPS`` timed ones; the loss must fall.  Prints ms per step
+    (CUDA events), tokens/s (host clock), the Adam update alone, peak
+    memory and TF32, beside the bounds from the reference's parameter
+    count."""
+    from repro_torch.launch.train import init_train_state, make_batch_fn
+    from repro_torch.optim.adam import AdamConfig, adam_update
+    from repro_torch.tree import leaves
+
+    cfg = spec.cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state = init_train_state(spec, False, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in leaves(params))
+    check(n == TRAIN_ARCH_PARAMS, f"{spec.name}: {n} params, the reference has "
+          f"{TRAIN_ARCH_PARAMS}")
+    state_gb = sum(t.numel() * t.element_size() for t in leaves((params, opt_state))) / 1e9
+    adam_cfg = AdamConfig(lr=TRAIN_FULL_LR, total_steps=TRAIN_FULL_STEPS + 1, warmup_steps=1)
+    step_fn = spec.make_train_step(adam_cfg)
+    batch_fn = make_batch_fn(spec, cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    losses, step_ms = [], []
+    wall = 0.0
+    for i in range(1 + TRAIN_FULL_STEPS):
+        batch = batch_fn(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        end.record()
+        losses.append(float(metrics["loss"]))
+        if i:  # the first step is the warm-up
+            wall += time.perf_counter() - t0
+            step_ms.append(start.elapsed_time(end))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"{spec.name}: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"{spec.name}: loss did not fall: {losses}")
+    adam_ms = device_ms(lambda: adam_update(adam_cfg, params, opt_state["m"], opt_state), 3)
+    # one more step under torch.profiler: where the device's time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = batch_fn(1 + TRAIN_FULL_STEPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 8 * n * tokens  # 6NT for the step, 2NT for remat's second forward
+    bound_step_ms = 1e3 * flops / FP32_FLOPS_PER_S
+    adam_bytes = 7 * 4 * n  # read p, g, m, v; write p, m, v (float32)
+    bound_adam_ms = 1e3 * adam_bytes / HBM_BYTES_PER_S
+    med = float(np.median(step_ms))
+    print(f"[train] 17(b) {spec.name} full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}), float32, {n:,} params drawn in {init_s:.1f} s; params, m and v "
+          f"{state_gb:.2f} GB (+ gradients {4 * n / 1e9:.2f} GB); TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN {torch.backends.cudnn.allow_tf32}; "
+          f"{card}")
+    print(f"[train] 17(b) B={TRAIN_BATCH} S={TRAIN_SEQ}, lr {TRAIN_FULL_LR}: loss "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; ms per step (CUDA events) median {med:.1f} (min {min(step_ms):.1f}, max "
+          f"{max(step_ms):.1f}), bound {bound_step_ms:.1f} ms ({flops / 1e12:.2f} TFLOP at "
+          f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32: 6NT + 2NT for remat), "
+          f"{TRAIN_FULL_STEPS * tokens / wall:.0f} tokens/s (host clock over "
+          f"{TRAIN_FULL_STEPS} steps); Adam update alone {adam_ms:.2f} ms, bound "
+          f"{bound_adam_ms:.2f} ms ({adam_bytes / 1e9:.1f} GB at 3.35 TB/s); peak memory "
+          f"{peak_gb:.2f} GB")
+    print(f"[train] 17(b) one step under torch.profiler: {prof_ms:.1f} ms (host clock), "
+          f"{len(kern)} kernels, device busy {busy:.1f} ms ({100 * busy / prof_ms:.0f}%); most "
+          "device time: " + "; ".join(f"{n[:60]} {t:.1f} ms" for n, t in top) + f" [{card}]")
+    del params, opt_state, metrics
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=med, bound_step_ms=bound_step_ms, adam_ms=adam_ms,
+                bound_adam_ms=bound_adam_ms, peak_gb=peak_gb, tokens_per_s=TRAIN_FULL_STEPS
+                * tokens / wall, busy_ms=busy, kernels=len(kern))
+
+
+def train_restart(dev) -> dict:
+    """17(c): ``RESTART_ARGS`` through ``launch/train.py``'s ``main`` on the
+    card: 8 steps against 4 steps, a checkpoint, ``--resume`` and 4 more
+    (checkpoints in a temporary directory inside the checkout); the final
+    losses within 1e-5 relative, and whether their bits agree."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as train_mod
+
+    args = RESTART_ARGS + ["--device", str(dev)]
+    with contextlib.redirect_stdout(io.StringIO()) as log, \
+            tempfile.TemporaryDirectory(dir=REPO, prefix=".ckpt_") as d:
+        full = train_mod.main(args + ["--steps", "8"])
+        train_mod.main(args + ["--steps", "4", "--ckpt-dir", d, "--ckpt-every", "4"])
+        resumed = train_mod.main(args + ["--steps", "8", "--ckpt-dir", d, "--ckpt-every",
+                                         "100", "--resume"])
+    check("resumed from step 4" in log.getvalue(), "the restart did not resume from step 4")
+    rel = abs(resumed[-1] - full[-1]) / abs(full[-1])
+    check(len(resumed) == 4 and rel <= 1e-5, f"restart: final loss {resumed[-1]} against "
+          f"{full[-1]} (relative {rel:.2e})")
+    print(f"[train] 17(c) {RESTART_ARGS[1]} reduced on the card: 8 steps final loss "
+          f"{full[-1]!r}, 4 + checkpoint + resume + 4: {resumed[-1]!r} (relative {rel:.2e}; "
+          f"bits {'equal' if resumed[-1] == full[-1] else 'differ'}); losses after the resume "
+          + " ".join(f"{v:.6f}" for v in resumed) + " against "
+          + " ".join(f"{v:.6f}" for v in full[4:]))
+    return dict(full=full, resumed=resumed, rel=rel)
+
+
+def train_drive(dev, card: str) -> dict:
+    """Phase 17: the training stack (no SCV kernel on the path)."""
+    from repro_torch.configs import ARCHS
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
+
+    t0 = time.perf_counter()
+    kmod.reset_counts()
+    worst = train_card_vs_cpu(ARCHS, dev)
+    full = train_full(ARCHS[TRAIN_ARCH], dev, card)
+    restart = train_restart(dev)
+    launches = (kmod.launches, kmod.scalar_launches)
+    check(launches == (0, 0), f"phase 17 launched SCV kernels: {launches}")
+    seconds = time.perf_counter() - t0
+    print(f"[train] phase 17: {seconds:.1f} s; SCV kernel launches: 0 (optim/, train/, data/ "
+          f"and launch/train.py reach no pl.pallas_call)")
+    return dict(worst=worst, full=full, restart=restart, seconds=seconds)
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/scv_spmm/csrc/scv_spmm.cu"
@@ -218,6 +441,7 @@ UNIT_WORK_SWEEP = (512, 1024, 2048, 4096, 8192)  # arxiv chain, measured only
 DENSE_THRESHOLD_SWEEP = (64, 128, 192, 256, 384, 512, 768)  # T = 64, measured only
 TRAIN_STEPS = 20
 TRAIN_LR = 2.0
+STEP_MS_BEFORE = 15.762  # 8,192/4M step with the index_add_ backward (PERF.md, H100, 700 W)
 DELTA_EDGES = 64  # edges a streaming delta touches
 DELTA_STREAM = ("value update", "value update", "inserts + removes", "value update",
                 "net shrink", "ladder crossing", "value update", "inserts + removes",
@@ -250,6 +474,21 @@ WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TOKENS = 4, 1500, 32  # Whisper's 30-seco
 WHISPER_START = 50_258  # the first token the decoder is fed (start of transcript)
 SSM_SERVE_ARCHS, SSM_SERVE_REQUESTS = ("zamba2-2.7b", "mamba2-780m"), 8  # 16(c)
 PROFILE_STEPS = 5  # 16(c): decode steps timed on the host clock and under torch.profiler
+# phase 17: the training stack.  (a) card against CPU on the reduced configs
+# (one step at an LR of 5e-6: Adam's first step is about g / (|g| + eps), so
+# an entry whose gradient is near zero on both devices may step anywhere in
+# [-1, 1] on either; at this LR such a step stays far inside the tolerance)
+TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ = 4, 16
+TRAIN_SMALL_ADAM = dict(lr=1e-5, warmup_steps=2, total_steps=10)
+TRAIN_MICRO_ARCH, TRAIN_MASTER_ARCH = "qwen1.5-32b", "mamba2-780m"
+TRAIN_TOL, TRAIN_TOL_BF16 = 1e-4, 1e-2  # of the largest magnitude; bf16: one rounding
+# (b) mamba2-780m at full width and depth, float32, through launch/train.py
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_FULL_STEPS, TRAIN_FULL_LR = (
+    "mamba2-780m", 4, 512, 8, 3e-4)
+TRAIN_ARCH_PARAMS = 780_382_464  # the reference's count for mamba2-780m
+# (c) restart: the reference's tests/test_system.py case, on the card
+RESTART_ARGS = ["--arch", "qwen1.5-32b", "--reduced", "--batch", "2", "--seq", "16",
+                "--lr", "1e-3", "--total-steps", "8"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -519,7 +758,7 @@ def stream_drive(adj, layout, dev, n_feat: int, gen) -> dict:
     numbers of the run.  Raises on any disagreement."""
     from repro_torch.core.validate import validate_plan
     from repro_torch.kernels.scv_spmm import ref
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
     from repro_torch.models.gnn import build_graph
     from repro_torch.serve.graph_engine import plan_launches
@@ -639,7 +878,7 @@ def tracked_serving(adj, cfg, layout, dev) -> dict:
     """Phase 11: ``adj`` served as one tracked member of a debug-validating
     engine on ``dev``, with value-update deltas between waves; returns the
     numbers of the run.  Raises on any disagreement."""
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.launch.graph_serve import build_default_engine
     from repro_torch.models.gnn import build_graph
     from repro_torch.serve.graph_engine import GraphRequest
@@ -758,7 +997,7 @@ def shard_placements(g, ex, n_feat: int, gen, dev, placed: dict) -> list:
     from repro_torch.core.partition import shard_plan, split_equal_nnz
     from repro_torch.core.validate import validate_plan
     from repro_torch.kernels.scv_spmm import ref
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
     from repro_torch.serve.graph_engine import plan_launches
     from repro_torch.tune.cost import plan_launched_slots
@@ -860,7 +1099,7 @@ def shard_model(g, cfg, ex, dev) -> dict:
     gradients are held against the unsharded kernel path (1e-4 of each
     gradient's largest magnitude)."""
     from repro_torch.core.exec import ShardingDecision
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.models.gnn import gnn_forward, gnn_loss, init_gnn
     from repro_torch.serve.graph_engine import plan_launches
 
@@ -919,7 +1158,7 @@ def shard_serving(cfg, layout, dev, pool_devices) -> dict:
     forward (1e-4), kernel launches against the engine's count, and the
     same burst again served from placed composites in the cache."""
     from repro_torch.core.exec import PlanExecutor
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.launch.graph_serve import build_default_engine, default_pool, make_requests
     from repro_torch.models.gnn import build_graph
     from repro_torch.serve.graph_engine import GraphRequest
@@ -982,7 +1221,7 @@ def shard_narrow(g, dev, gen) -> dict:
     version (1e-5); an empty slab launches nothing."""
     from repro_torch.core.exec import PlanExecutor, ShardingDecision, aggregate_sharded
     from repro_torch.kernels.scv_spmm import ref
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
     from repro_torch.serve.graph_engine import plan_launches
 
@@ -1121,7 +1360,7 @@ def tune_drive(arxiv_adj, arxiv, cfg, x, fwd_ms, pool, serve_gps, check_outputs,
     import tempfile
 
     from repro_torch.core.scv import DEFAULT_LADDER, DEFAULT_TILE
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.launch.graph_serve import build_default_engine, make_requests
     from repro_torch.models.gnn import build_graph, gnn_forward, init_gnn
     from repro_torch.serve.graph_engine import plan_launches
@@ -1334,7 +1573,7 @@ def backends_drive(arxiv_adj, arxiv, dense_adj, f: int, dev, card: str) -> dict:
     from repro_torch.core.scv import (
         coo_to_scv, coo_to_scv_tiles, plan_from_tiles, scv_to_tiles, split_hybrid,
     )
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
 
     t_phase = time.perf_counter()
@@ -1465,7 +1704,7 @@ def capture_drive(arxiv, cfg, pool, layout, check_outputs, dev, card: str) -> di
     on the card.
     ``card`` (name and power limit) stands in every timing line."""
     from repro_torch.core.tracecheck import trace_check
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.launch.graph_serve import (
         build_default_engine, make_requests, poisson_arrivals, run_open_loop,
     )
@@ -1982,7 +2221,7 @@ def lm_serve(full_cfg, dev, card: str) -> dict:
 def lm_drive(dev, card: str) -> dict:
     """Phase 15: the decoder-LM path (no SCV kernel on it)."""
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
     t0 = time.perf_counter()
     worst = lm_card_vs_cpu({k: v for k, v in ARCHS.items() if v.kind == "lm"}, dev)
@@ -2457,7 +2696,7 @@ def ssm_drive(dev, card: str) -> dict:
     """Phase 16: the SSM, hybrid and encoder-decoder families, and the
     launcher's captured decode (no SCV kernel on the path)."""
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
     t0 = time.perf_counter()
     kmod.reset_counts()
@@ -2486,9 +2725,9 @@ def main() -> int:
     from repro_torch.configs import gcn_paper
     from repro_torch.core import scv
     from repro_torch.kernels.scv_spmm import ref
-    from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.kernels.scv_spmm.build import load_library
-    from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+    from repro_torch.kernels.scv_spmm.ops import cached_backward, scv_spmm_plan
     from repro_torch.launch.graph_serve import (
         build_default_engine, default_pool, make_requests, poisson_arrivals,
         run_open_loop,
@@ -2925,23 +3164,69 @@ def main() -> int:
         return -logp.gather(1, labels[:, None]).mean()  # mask all ones
 
     def grad_check(g, x, labels, label):
-        """Step 0: the kernels' gradients against plain autograd through
-        the plain version; returns params, their flat list, loss, grads."""
+        """Step 0, twice on the same inputs: the kernels' gradients (the
+        backward's dZ is the kernel chain over the transposed plan) must
+        give the same bits both times, and agree with plain autograd
+        through the plain version; returns params, their flat list, loss,
+        grads."""
         params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
         names = [f"{layer}.{k}" for layer, ps in params.items() for k in ps]
         flat = [p.requires_grad_(True) for ps in params.values() for p in ps.values()]
-        loss = gnn_loss(params, cfg, g, x, labels, torch.ones(g.n_nodes, device=dev))
+        ones = torch.ones(g.n_nodes, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = gnn_loss(params, cfg, g, x, labels, ones)
         grads = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        again = torch.autograd.grad(gnn_loss(params, cfg, g, x, labels, ones), flat)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"{label}: two backwards on the same inputs differ")
         want = torch.autograd.grad(plain_loss(params, g, x, labels), flat)
         errs = {}
         for name, a, b in zip(names, grads, want):
             err, scale = rel_err(a, b)
-            # the backward's index_add_ sums with atomics, in no fixed order
             check(err <= 1e-4 * scale, f"{label} grad {name}: max err {err} > 1e-4 * {scale}")
             errs[name] = err / scale
         print(f"[train] {label} step-0 gradients vs plain autograd, max err / max |grad|: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; two backwards equal bit for bit; the first step (transposed plan built) "
+              f"{first_s:.2f} s")
         return params, flat, loss, grads
+
+    def backward_chain(g, n_feat, label) -> None:
+        """The backward's dZ chain alone (the transposed plan, the forward's
+        values gathered into it) at F = ``n_feat``, against its bound and
+        the plain backward it replaced (``index_add_`` over the live
+        entries, found by ``nonzero()``; measured only)."""
+        bw = cached_backward(g.plan)
+        check(bw is not None, f"{label}: the backward built no transposed plan")
+        segs = getattr(g.plan, "segments", (g.plan,))
+        plan_t = bw.plan_t.reweighted(torch.cat([s.vals.reshape(-1) for s in segs]))
+        z = torch.randn((g.plan.shape[1], n_feat), generator=gen).to(dev)
+        cot = torch.randn((g.plan.padded_shape[0], n_feat), generator=gen).to(dev)
+
+        def plain_dz():
+            dz = torch.zeros_like(z)
+            for seg in segs:
+                slot = torch.arange(seg.cap, device=dev)
+                t, sl = (slot[None, :] < seg.nnz_in_tile[:, None]).nonzero(as_tuple=True)
+                grow = seg.tile_row.long()[t] * seg.tile + seg.rows[t, sl].long()
+                gcol = seg.tile_col.long()[t] * seg.tile + seg.cols[t, sl].long()
+                dz.index_add_(0, gcol, cot[grow] * seg.vals[t, sl][:, None])
+            return dz
+
+        got = scv_spmm_plan(plan_t, cot)[: z.shape[0]]
+        err, scale = rel_err(got, plain_dz())
+        check(err <= 1e-5 * scale, f"{label}: backward chain off the plain dZ by {err}")
+        ms = device_ms(lambda: scv_spmm_plan(plan_t, cot), 10)
+        plain_ms = device_ms(plain_dz, 5)
+        bound_ms, bound_by = chain_bounds(plan_t, plan_entries(plan_t), n_feat)
+        print(f"[train] {label} backward dZ chain F={n_feat} over the transposed plan "
+              f"(tiles {[s.n_tiles for s in getattr(plan_t, 'segments', (plan_t,))]}, "
+              f"dense tiles {dense_counts(plan_t)}): {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain backward (index_add_) {plain_ms:.4f} ms; max err vs plain "
+              f"{err:.3e} (max |plain| {scale:.3e})")
 
     params8 = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
     kmod.reset_counts()
@@ -2954,6 +3239,7 @@ def main() -> int:
         torch.cuda.synchronize()
         fwd8_ms = (time.perf_counter() - t0) * 1e3 / 3
     params, flat, loss, grads = grad_check(mixed, x8, labels8, mixed_name)
+    plan_t8 = cached_backward(mixed.plan).plan_t
     losses = [loss.item()]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2966,11 +3252,15 @@ def main() -> int:
         losses.append(loss.item())
     step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     train_launches, train_dense = kmod.launches, kmod.dense_launches
-    forwards = 4 + 1 + TRAIN_STEPS  # timed forwards, step 0, the SGD steps
+    forwards = 4 + 2 + TRAIN_STEPS  # timed forwards, step 0 twice, the SGD steps
+    backwards = 2 + TRAIN_STEPS  # each layer's dZ: one chain over the transposed plan
     n_dense_segs = sum(1 for c in dense_counts(mixed.plan) if c)
-    check(train_launches == forwards * cfg.n_layers * plan_launches(mixed.plan),
+    n_dense_segs_t = sum(1 for c in dense_counts(plan_t8) if c)
+    check(train_launches == cfg.n_layers * (forwards * plan_launches(mixed.plan)
+                                            + backwards * plan_launches(plan_t8)),
           f"dense-block drive launched {train_launches} kernels")
-    check(train_dense == forwards * cfg.n_layers * n_dense_segs > 0,
+    check(train_dense == cfg.n_layers * (forwards * n_dense_segs
+                                         + backwards * n_dense_segs_t) > 0,
           f"dense-block drive: {train_dense} launches took the dense branch")
     check(tuple(out8.shape) == (n_mixed, cfg.n_classes) and bool(torch.isfinite(out8).all()),
           "dense-block forward output shape/finiteness")
@@ -2983,14 +3273,17 @@ def main() -> int:
           f"(host clock, 3 forwards), max abs err vs plain forward {err:.3e} "
           f"(max |plain| {scale:.3e})")
     print(f"[train] {mixed_name}: {TRAIN_STEPS} SGD steps at lr {TRAIN_LR}, {step_ms:.3f} ms "
-          f"per step (host clock: forward, backward, update), loss "
+          f"per step (host clock: forward, backward, update; {STEP_MS_BEFORE} ms with the "
+          f"index_add_ backward), loss "
           + " ".join(f"{v:.4f}" for v in losses[:: max(1, TRAIN_STEPS // 5)])
           + f" -> {losses[-1]:.4f}; {train_launches} kernel launches over {forwards} "
-          f"forwards, {train_dense} of them with dense tiles")
+          f"forwards and {backwards} backwards, {train_dense} of them with dense tiles")
+    backward_chain(mixed, cfg.d_hidden, mixed_name)
 
     arxiv_labels = torch.from_numpy(
         np.random.default_rng(7).integers(0, cfg.n_classes, spec.nodes)).to(dev)
     grad_check(arxiv, x, arxiv_labels, "arxiv")
+    backward_chain(arxiv, cfg.d_hidden, "arxiv")
     torch.cuda.synchronize()
 
     # -- 9. the scalar body through the public op ------------------------------
@@ -3040,6 +3333,9 @@ def main() -> int:
 
     # -- 16. the SSM, hybrid and encoder-decoder families; captured decode ---------
     ssm_drive(dev, smi)
+
+    # -- 17. the training stack -----------------------------------------------------
+    train_drive(dev, smi)
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

@@ -4,10 +4,12 @@ Port of ``src/repro/configs/common.py``.  Each ``configs/<arch>.py``
 exports ``spec: ArchSpec``, which binds a model family (``lm``,
 ``mamba_lm``, ``hybrid``, ``encdec``) to its full-size config, a reduced
 same-family config for small runs, and the input shapes that apply.
-Every family inits, computes its loss forward and makes its prefill and
-decode steps; ``make_train_step`` raises, naming the ``ROADMAP.md`` item
-that brings the training stack.  The abstract-input helpers
-(``input_specs``, ``state_specs``) wait for the dry-run slice.
+Every family inits, computes its loss, trains (``make_train_step``: one
+eager step of autograd and Adam, with gradient accumulation over
+microbatches) and makes its prefill and decode steps.  Abstract trees
+(``make_abstract``, ``abstract_opt_state``, ``bf16_params``) are tensors on
+the ``meta`` device.  ``input_specs`` and ``state_specs`` wait for the
+sharding slice (``ROADMAP.md`` §1 item 2).
 """
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ import importlib
 from typing import Any, Callable
 
 import numpy as np
+import torch
+
+from repro_torch.optim.adam import AdamConfig, adam_update
+from repro_torch.tree import leaves, tree_map, unflatten
 
 #: Each family's module under ``repro_torch.models`` and its init, loss
 #: and decode functions there.
@@ -25,7 +31,6 @@ _FAMILIES = {
     "hybrid": ("hybrid", "init_hybrid", "train_loss", "decode_step"),
     "encdec": ("encdec", "init_encdec", "train_loss", "decode_step"),
 }
-_TRAINING = "ROADMAP.md §1 item 6 (the training stack: optim/, train/, data/, launch/train.py)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +83,49 @@ class ArchSpec:
         cfg = self.cfg(reduced)
         return lambda p, batch: train_loss(p, cfg, batch)
 
-    def make_train_step(self, *args, **kwargs):
-        raise NotImplementedError(f"{self.name}: training is not ported yet; {_TRAINING}")
+    def make_train_step(self, adam_cfg: AdamConfig | None = None, reduced=False,
+                        microbatch: int | None = None, gather_params_once: bool | None = None):
+        """``train_step(params, opt_state, batch) -> (params, opt_state,
+        metrics)``: the loss and its gradients by autograd (activations
+        recomputed where the reference checkpoints them, ``layers.remat``),
+        then one ``adam_update``.  With ``microbatch = k > 1`` the batch is
+        split into ``k`` slices along its first axis, run one after another
+        (activation memory scales 1/k), and the gradients ``g / k`` and the
+        loss ``l / k`` accumulate in float32, in the reference's order.
+        The step runs eagerly on the params' device.
+
+        ``gather_params_once`` is accepted and does nothing: on one card no
+        parameter is sharded, so there is nothing to gather once."""
+        adam_cfg = adam_cfg or AdamConfig()
+        loss_fn = self.loss_fn(reduced)
+        k = microbatch if microbatch is not None else (1 if reduced else self.train_microbatch)
+
+        def value_and_grad(params, batch):
+            flat = [t.detach().requires_grad_(True) for t in leaves(params)]
+            with torch.enable_grad():
+                loss = loss_fn(unflatten(params, flat), batch)
+                grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, grads)]
+            return loss.detach(), unflatten(params, grads)
+
+        def train_step(params, opt_state, batch):
+            if k == 1:
+                loss, grads = value_and_grad(params, batch)
+            else:
+                dev = leaves(params)[0].device
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                       device=p.device), params)
+                for i in range(k):
+                    mb = {name: x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
+                          for name, x in batch.items()}
+                    l, g = value_and_grad(params, mb)
+                    grads = tree_map(lambda a, gg: a + gg.to(torch.float32) / k, grads, g)
+                    loss = loss + l / k
+            params, opt_state, metrics = adam_update(adam_cfg, params, grads, opt_state)
+            return params, opt_state, {"loss": loss, **metrics}
+
+        return train_step
 
     def make_prefill_step(self, shape: Shape, reduced=False):
         cfg = self.cfg(reduced)
@@ -145,3 +191,34 @@ class ArchSpec:
                 n = n * moe.top_k // moe.n_experts
             total += n
         return total
+
+
+# -- abstract trees, on the meta device ---------------------------------------
+def make_abstract(tree):
+    """The tree's shapes and dtypes as tensors on ``meta`` (no memory)."""
+    return tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype, device="meta"), tree)
+
+
+def abstract_opt_state(params_shapes, master_weights: bool = False):
+    """``init_adam``'s state for ``params_shapes``, on ``meta``."""
+
+    def f32(x):
+        return torch.empty(tuple(x.shape), dtype=torch.float32, device="meta")
+
+    st = {
+        "m": tree_map(f32, params_shapes),
+        "v": tree_map(f32, params_shapes),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+    if master_weights:
+        st["master"] = tree_map(f32, params_shapes)
+    return st
+
+
+def bf16_params(params_shapes):
+    """The bf16 compute-param tree (``master_weights`` mode), on ``meta``."""
+    return tree_map(
+        lambda x: torch.empty(tuple(x.shape), device="meta",
+                              dtype=torch.bfloat16 if x.dtype == torch.float32 else x.dtype),
+        params_shapes,
+    )

@@ -509,6 +509,13 @@ class RunIndex:
     _counters: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
+    # the backward of the chain whose first launched segment this index
+    # schedules (``ops._ScvChain``): its transposed plan and live-entry
+    # index, built at the first backward; one entry, keyed by the run
+    # indexes of all the chain's segments (a patched segment gets a new one)
+    _backward: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
 
     @classmethod
     def of(cls, tile_row: np.ndarray, nnz_in_tile: np.ndarray, device=None) -> "RunIndex":
@@ -901,6 +908,66 @@ def plan_from_tiles_bucketed(
             for j, s in enumerate(segs)
         )
     )
+
+
+def plan_entries(plan) -> dict:
+    """The live entries of a plan's segments, on the host, in flat slot
+    order (segment by segment, each ``n_tiles x cap`` row-major): their
+    ``flat`` slot index, segment ``seg``, tile ``t`` and slot ``s``, global
+    row ``grow`` and column ``gcol``, value and source COO entry ``perm``
+    (``None`` unless every segment carries perm).  Reads the leaves back
+    once for a plan on the card."""
+    segments = getattr(plan, "segments", (plan,))
+    parts, offset = [], 0
+    for k, seg in enumerate(segments):
+        nt, cap = seg.rows.shape
+        nnz = np.minimum(seg.nnz_in_tile.cpu().numpy().astype(np.int64), cap)
+        t = np.repeat(np.arange(nt, dtype=np.int64), nnz)
+        s = np.arange(t.size, dtype=np.int64) - np.repeat(np.cumsum(nnz) - nnz, nnz)
+        tr, tc = seg.tile_row.cpu().numpy(), seg.tile_col.cpu().numpy()
+        parts.append(dict(
+            flat=offset + t * cap + s, seg=np.full(t.size, k), t=t, s=s,
+            grow=tr[t].astype(np.int64) * seg.tile + seg.rows.cpu().numpy()[t, s],
+            gcol=tc[t].astype(np.int64) * seg.tile + seg.cols.cpu().numpy()[t, s],
+            vals=seg.vals.detach().cpu().numpy()[t, s],
+            perm=None if seg.perm is None else seg.perm.cpu().numpy()[t, s].astype(np.int64),
+        ))
+        offset += nt * cap
+    out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0] if k != "perm"}
+    perms = [p["perm"] for p in parts]
+    out["perm"] = None if any(p is None for p in perms) else np.concatenate(perms)
+    return out
+
+
+def transposed_plan(plan):
+    """The plan of ``Âᵀ`` for ``plan`` (``SCVPlan`` or ``SCVBucketedPlan``),
+    built by this module's builders with the forward's tile, order and
+    capacities (a single-cap plan stays single-cap; a bucketed one keeps
+    its ladder, heavy tiles split at its top cap), coverage dummies
+    included, on the plan's device.
+
+    Its entries come in the forward's source-COO order (flat slot order
+    without perm), so its leaves equal those built from the transposed
+    COO.  Its ``perm`` leaf maps each slot to its forward entry instead:
+    the index into the segments' ``vals`` flattened and concatenated
+    (-1 on padding), so ``reweighted(flat_vals)`` gathers the current
+    forward values.  Backs the backward of ``ops.scv_spmm_plan``."""
+    segments = getattr(plan, "segments", (plan,))
+    e = plan_entries(plan)
+    order = np.argsort(e["perm"], kind="stable") if e["perm"] is not None else slice(None)
+    flat = e["flat"][order]
+    if sum(s.rows.numel() for s in segments) >= 2**31:
+        raise ValueError("forward plan has too many slots for an int32 gather index")
+    m, n = plan.shape
+    at = COOMatrix(e["gcol"][order].astype(np.int32), e["grow"][order].astype(np.int32),
+                   e["vals"][order], (n, m))
+    caps = tuple(s.cap for s in segments)
+    tiles = coo_to_scv_tiles(at, plan.tile, cap=caps[-1], order=plan.order)
+    tiles = dataclasses.replace(tiles, perm=np.where(tiles.perm >= 0, flat[tiles.perm], -1))
+    dev = plan.device
+    if isinstance(plan, SCVBucketedPlan):
+        return plan_from_tiles_bucketed(tiles, caps=caps, device=dev)
+    return plan_from_tiles(tiles, device=dev)
 
 
 # ---------------------------------------------------------------------------

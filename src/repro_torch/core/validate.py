@@ -41,6 +41,12 @@ One invariant is the port's own:
   wrapper sizes shared memory and scratch from it, so an index left
   behind by a patch of the plan's arrays sends the kernel a schedule that
   no longer matches its tiles.
+* **transposed** — checked only once a backward has built the plan's
+  transposed plan (``ops._ScvChain``): it must equal
+  ``core.scv.transposed_plan`` of the plan's current leaves, leaf for
+  leaf.  The backward computes ``dZ = Âᵀ g`` through it, and it is kept
+  per run index, so leaves changed in place under the same run indexes
+  leave it stale (as they leave the run index).
 
 A placed plan (``core.exec.ShardedPlan``) gets the reference's sharded
 chain: **shard-span** (each segment holds ``decision.tile_parts`` spans),
@@ -59,7 +65,7 @@ import torch
 
 from repro_torch.core.exec import ShardedPlan
 from repro_torch.core.formats import COOMatrix
-from repro_torch.core.scv import RunIndex, SCVBucketedPlan, SCVPlan, SCVTiles
+from repro_torch.core.scv import _LEAVES, RunIndex, SCVBucketedPlan, SCVPlan, SCVTiles
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +512,41 @@ def _check_run_index(p: SCVPlan, v: _PlanView, loc: dict) -> list[InvariantResul
     ]
 
 
+def _check_transposed(plan, loc: dict) -> list[InvariantResult]:
+    """The transposed plan a backward built for ``plan`` (if any) must
+    equal the one its current leaves give."""
+    from repro_torch.core.scv import transposed_plan
+    from repro_torch.kernels.scv_spmm.ops import cached_backward
+
+    bw = cached_backward(plan)
+    if bw is None:
+        return []
+    want = transposed_plan(plan)
+    have_segs = getattr(bw.plan_t, "segments", (bw.plan_t,))
+    want_segs = getattr(want, "segments", (want,))
+    bad = []
+    if len(have_segs) != len(want_segs):
+        bad.append("segments")
+    for j, (a, b) in enumerate(zip(have_segs, want_segs)):
+        for name in _LEAVES:
+            x, y = _np(getattr(a, name)), _np(getattr(b, name))
+            if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+                bad.append(f"{name}[{j}]")
+    return [
+        InvariantResult(
+            "transposed",
+            not bad,
+            detail=(
+                f"the backward's transposed plan disagrees with the plan's leaves on "
+                f"{', '.join(bad)} (leaves changed in place after a backward?)"
+                if bad
+                else ""
+            ),
+            **loc,
+        )
+    ]
+
+
 def _segment_entries(v: _PlanView) -> np.ndarray:
     """Real entries as a sortable (grow, gcol, val-bits) record array."""
     slot = np.arange(v.cap)[None, :]
@@ -599,6 +640,7 @@ def validate_plan(obj: Any, coo: Optional[COOMatrix] = None) -> ValidationReport
         v = _PlanView.of(obj)
         checks += _validate_single(v, {}, plan=obj)
         checks += _check_perm_bijection([(v, {})], {})
+        checks += _check_transposed(obj, {})
         if coo is not None:
             checks += _validate_reassembly([v], coo, {})
         return ValidationReport(kind="plan", checks=tuple(checks))
@@ -615,6 +657,7 @@ def validate_plan(obj: Any, coo: Optional[COOMatrix] = None) -> ValidationReport
             )
         checks += _check_ladder(obj.caps, [v for v, _ in views])
         checks += _check_perm_bijection(views, {})
+        checks += _check_transposed(obj, {})
         if coo is not None:
             checks += _validate_reassembly([v for v, _ in views], coo, {})
         return ValidationReport(kind="bucketed", checks=tuple(checks))
@@ -671,6 +714,11 @@ def _validate_sharded(sp: ShardedPlan, coo: Optional[COOMatrix]) -> ValidationRe
             )
         )
     checks += _check_perm_bijection(views, {})
+    if all(len(spans) == tp for spans in sp.segments):
+        for p in range(tp):
+            chain = sp.span(p)
+            if chain is not None:
+                checks += _check_transposed(chain, {"part": p})
     if coo is not None:
         checks += _validate_reassembly([v for v, _ in views], coo, {})
     return ValidationReport(kind="sharded", checks=tuple(checks))

@@ -14,12 +14,13 @@ kernel for CUDA tensors and the plain version for CPU tensors.  Both entry
 points run their whole chain of launches inside one
 ``torch.autograd.Function`` (:class:`_ScvChain`), the counterpart of the
 reference's custom VJPs (``ops.py:96-192``): the output carries a
-``grad_fn``, and the backward gives ``d/dvals`` of every segment and
-``d/dz`` in plain PyTorch, as the reference leaves them to XLA.
+``grad_fn``.  The backward gives ``d/dz = Âᵀ g`` through the same kernel
+over the plan of ``Âᵀ`` (built once per graph, at its first backward), so
+gradients are summed in a fixed order on the card as the forward is, and
+``d/dvals`` of every segment as a gather and a row-sum over its live
+entries.
 """
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,87 +70,150 @@ def _infer_nnz(rows, cols, vals) -> torch.Tensor:
     return torch.where(is_real, slot, 0).amax(dim=1).to(torch.int32)
 
 
-class _Segment(NamedTuple):
-    """The integer leaves of one launch (its values travel apart, as a
-    differentiable input of :class:`_ScvChain`)."""
+class _Backward:
+    """What the backward of a chain over ``plan`` needs beyond the forward,
+    built once per graph at its first backward and kept on the run index of
+    the chain's first launched segment (``RunIndex._backward``):
 
-    tile_row: torch.Tensor
-    tile_col: torch.Tensor
-    nnz_in_tile: torch.Tensor
-    rows: torch.Tensor
-    cols: torch.Tensor
-    runs: object  # core.scv.RunIndex
-    tile: int
+    * ``plan_t`` — the plan of ``Âᵀ`` (``core.scv.transposed_plan``), so
+      ``dZ = Âᵀ g`` is one more forward chain through the kernel, summed
+      in a fixed order;
+    * per launched segment, its live entries' tile and slot and their
+      global row and column (``live``: int64 tensors on the plan's
+      device), so ``d/dvals`` needs no ``nonzero()`` and no backward reads
+      the card back.
+
+    Both are built from one read of the plan back to the host.  A chain
+    whose segments' run indexes differ (a patched plan, a new placement)
+    keys another entry and replaces this one; a plan whose leaves were
+    changed in place under the same run indexes is caught by the
+    ``transposed`` check of ``core.validate.validate_plan``."""
+
+    def __init__(self, plan):
+        from repro_torch.core.scv import plan_entries, transposed_plan
+
+        self.plan_t = transposed_plan(plan)
+        e = plan_entries(plan)
+        segments = getattr(plan, "segments", (plan,))
+        self.live = [
+            tuple(torch.from_numpy(e[f][e["seg"] == k]).to(seg.device)
+                  for f in ("t", "s", "grow", "gcol"))
+            for k, seg in enumerate(segments) if seg.n_tiles
+        ]
 
 
-def _entry_grads(seg: _Segment, vals, z, g, dz, need_dvals: bool):
-    """The reference's ``_entry_grads`` (``ops.py:115``) for one launch,
-    over its live entries only: returns ``dvals = <g[row], z[col]>`` (zero
-    past each tile's nnz) if asked for, and adds ``A_seg^T g`` into ``dz``
-    if given."""
-    if not need_dvals and dz is None:
+def cached_backward(plan):
+    """The :class:`_Backward` a chain over ``plan`` has built, or ``None``
+    (none yet, or one built for segments with other run indexes)."""
+    segments = getattr(plan, "segments", (plan,))
+    live = [s for s in segments if s.n_tiles]
+    hit = live[0].runs._backward.get("entry") if live else None
+    if hit is None or len(hit[0]) != len(segments) or any(
+            r is not s.runs for r, s in zip(hit[0], segments)):
         return None
-    slot = torch.arange(vals.shape[1], device=vals.device)
-    t_idx, s_idx = (slot[None, :] < seg.nnz_in_tile[:, None]).nonzero(as_tuple=True)
-    grow = seg.tile_row.long()[t_idx] * seg.tile + seg.rows[t_idx, s_idx].long()
-    gcol = seg.tile_col.long()[t_idx] * seg.tile + seg.cols[t_idx, s_idx].long()
-    g_rows = g[grow]
-    dvals = None
-    if need_dvals:
-        dvals = torch.zeros_like(vals)
-        dvals[t_idx, s_idx] = (g_rows * z[gcol]).sum(-1)
-    if dz is not None:
-        dz.index_add_(0, gcol, g_rows * vals[t_idx, s_idx][:, None])
-    return dvals
+    return hit[1]
+
+
+def _backward_data(plan) -> _Backward:
+    """The chain's :class:`_Backward`, from its cache or built now (for a
+    plan with a launched segment)."""
+    bw = cached_backward(plan)
+    if bw is None:
+        bw = _Backward(plan)
+        segments = getattr(plan, "segments", (plan,))
+        first = next(s for s in segments if s.n_tiles)
+        first.runs._backward["entry"] = (tuple(s.runs for s in segments), bw)
+    return bw
+
+
+def _run(segs, vals, z, n_rows, zeros, body, dense_threshold) -> torch.Tensor:
+    """The launches of a chain over ``segs`` (each with its values): the
+    first seeds the strips it visits, later ones accumulate; with
+    ``zeros`` the chain starts from an explicit zero output."""
+    out = None
+    if zeros or not segs:
+        out = torch.zeros((n_rows, z.shape[1]), dtype=torch.float32, device=z.device)
+    for seg, v in zip(segs, vals):
+        accumulate = out is not None
+        if out is None:
+            out = torch.empty((n_rows, z.shape[1]), dtype=torch.float32, device=z.device)
+        scv_spmm_runs(
+            seg.tile_row, seg.tile_col, seg.nnz_in_tile, seg.rows, seg.cols, v, z,
+            out, seg.runs, tile=seg.tile, accumulate=accumulate, body=body,
+            dense_threshold=dense_threshold,
+        )
+    return out
+
+
+def _launched(plan):
+    """The segments of ``plan`` a chain launches, and whether it must start
+    from zeros: an empty first segment leaves the first launch nothing to
+    seed, so the chain then starts from zeros, as the reference's does."""
+    segments = getattr(plan, "segments", (plan,))
+    return [s for s in segments if s.n_tiles], segments[0].n_tiles == 0
 
 
 class _ScvChain(torch.autograd.Function):
-    """A whole chain of launches, ``out = [0 +] sum_k A_k z``, as one
-    differentiable op of ``z`` and of each segment's values.
+    """A whole chain of launches over ``plan``, ``out = [0 +] sum_k A_k z``,
+    as one differentiable op of ``z`` and of each launched segment's
+    values.
 
-    Forward: the launches, as the wrapper runs them (the first seeds the
-    strips it visits, later ones accumulate; with ``zeros`` the chain
-    starts from an explicit zero output).  Backward, per segment, the
-    reference's ``_entry_grads``; ``d/dacc = g`` along the chain means every
-    segment sees the same ``g``.  ``index_add_`` sums ``dz`` with atomics on
-    the card, in no fixed order."""
+    Backward (the reference's ``_entry_grads``, ``ops.py:115``; ``d/dacc =
+    g`` along the chain, so every segment sees the same ``g``):
+
+    * ``dZ = Âᵀ g`` is a forward chain over the transposed plan
+      (:class:`_Backward`) with ``g`` as the dense operand and the forward
+      values gathered into its slots: the same kernels as the forward on
+      the card, the plain version on the CPU, summed in a fixed order;
+    * ``d/dvals[j] = <g[row_j], z[col_j]>`` over each segment's live
+      entries, a gather and a row-sum (zero past each tile's nnz).
+
+    Neither reads the card back after the first backward of a graph."""
 
     @staticmethod
-    def forward(ctx, segs, n_rows, zeros, body, dense_threshold, z, *vals):
-        out = None
-        if zeros or not segs:
-            out = torch.zeros((n_rows, z.shape[1]), dtype=torch.float32, device=z.device)
-        for seg, v in zip(segs, vals):
-            accumulate = out is not None
-            if out is None:
-                out = torch.empty((n_rows, z.shape[1]), dtype=torch.float32, device=z.device)
-            scv_spmm_runs(
-                seg.tile_row, seg.tile_col, seg.nnz_in_tile, seg.rows, seg.cols, v, z,
-                out, seg.runs, tile=seg.tile, accumulate=accumulate, body=body,
-                dense_threshold=dense_threshold,
-            )
-        ctx.segs = segs
+    def forward(ctx, plan, n_rows, zeros, body, dense_threshold, z, *vals):
+        segs, empty_first = _launched(plan)
+        ctx.plan, ctx.segs = plan, segs
+        ctx.run = (body, dense_threshold)
         ctx.save_for_backward(z, *vals)
-        return out
+        return _run(segs, vals, z, n_rows, zeros or empty_first, body, dense_threshold)
 
     @staticmethod
     def backward(ctx, g):
         z, *vals = ctx.saved_tensors
         need = ctx.needs_input_grad
         g = g.contiguous()
-        dz = torch.zeros_like(z) if need[5] else None
-        dvals = [
-            _entry_grads(seg, v, z, g, dz, need_dvals=need[6 + k])
-            for k, (seg, v) in enumerate(zip(ctx.segs, vals))
-        ]
+        if not ctx.segs:
+            return (None, None, None, None, None, torch.zeros_like(z) if need[5] else None)
+        bw = _backward_data(ctx.plan)
+        dz = None
+        if need[5]:
+            # the forward's values, gathered into the transposed slots
+            plan_t = bw.plan_t.reweighted(torch.cat([v.reshape(-1) for v in vals]))
+            segs_t, empty_first = _launched(plan_t)
+            n_t = plan_t.padded_shape[0]
+            out_t = _run(segs_t, [s.vals for s in segs_t], g, n_t, empty_first, *ctx.run)
+            dz = torch.zeros_like(z)
+            k = min(z.shape[0], n_t)
+            dz[:k] = out_t[:k]
+        dvals = []
+        for j, v in enumerate(vals):
+            if not need[6 + j]:
+                dvals.append(None)
+                continue
+            t, s, grow, gcol = bw.live[j]
+            d = torch.zeros_like(v)
+            d[t, s] = (g[grow] * z[gcol]).sum(-1)
+            dvals.append(d)
         return (None, None, None, None, None, dz, *dvals)
 
 
-def _chain(segs, vals, z, n_rows, zeros, body, dense_threshold) -> torch.Tensor:
+def _chain(plan, z, n_rows, zeros, body, dense_threshold) -> torch.Tensor:
+    segs, _ = _launched(plan)
     return _ScvChain.apply(
-        tuple(segs), n_rows, zeros, body, dense_threshold,
+        plan, n_rows, zeros, body, dense_threshold,
         z.to(torch.float32).contiguous(),
-        *(v.to(torch.float32).contiguous() for v in vals),
+        *(s.vals.to(torch.float32).contiguous() for s in segs),
     )
 
 
@@ -175,17 +239,20 @@ def scv_spmm(
     carry theirs.  The output starts from zeros, so block-rows no tile
     visits are defined without coverage dummies.  ``body`` and
     ``dense_threshold`` as for :func:`scv_spmm_plan`."""
-    from repro_torch.core.scv import RunIndex
+    from repro_torch.core.scv import ZMORTON, RunIndex, SCVPlan
 
     if tile_row.shape[0] == 0:
         return torch.zeros((n_rows, z.shape[1]), dtype=torch.float32, device=z.device)
     if nnz_in_tile is None:
         nnz_in_tile = _infer_nnz(rows, cols, vals)
-    ints = [t.to(torch.int32).contiguous()
-            for t in (tile_row, tile_col, nnz_in_tile, rows, cols)]
-    runs = RunIndex.of(ints[0].cpu().numpy(), ints[2].cpu().numpy(), tile_row.device)
-    seg = _Segment(*ints, runs=runs, tile=tile)
-    return _chain([seg], [vals], z, n_rows, True, body, dense_threshold)
+    tr, tc, nz, rs, cs = (t.to(torch.int32).contiguous()
+                          for t in (tile_row, tile_col, nnz_in_tile, rows, cols))
+    plan = SCVPlan(
+        tile_row=tr, tile_col=tc, rows=rs, cols=cs, vals=vals, nnz_in_tile=nz, perm=None,
+        tile=tile, cap=int(rows.shape[1]), shape=(n_rows, int(z.shape[0])), order=ZMORTON,
+        runs=RunIndex.of(tr.cpu().numpy(), nz.cpu().numpy(), tile_row.device),
+    )
+    return _chain(plan, z, n_rows, True, body, dense_threshold)
 
 
 def scv_spmm_plan(
@@ -217,10 +284,4 @@ def scv_spmm_plan(
         raise ValueError(
             f"z of shape {tuple(z.shape)} lacks rows for the plan's {n_cols} columns"
         )
-    live = [s for s in segments if s.n_tiles]  # empty segments launch nothing
-    segs = [_Segment(s.tile_row, s.tile_col, s.nnz_in_tile, s.rows, s.cols, s.runs, s.tile)
-            for s in live]
-    # an empty first segment leaves the first launch nothing to seed: the
-    # chain then starts from zeros, as the reference's does
-    zeros = init == "zeros" or segments[0].n_tiles == 0
-    return _chain(segs, [s.vals for s in live], z, n_rows, zeros, body, dense_threshold)
+    return _chain(plan, z, n_rows, init == "zeros", body, dense_threshold)

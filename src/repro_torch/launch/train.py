@@ -1,0 +1,127 @@
+"""End-to-end training launcher, on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch <id> [--reduced] \
+        --steps 200 --batch 8 --seq 128 --ckpt-dir <dir> [--resume] --device cuda
+
+Port of ``src/repro/launch/train.py`` with ``--mesh none``: the same flags,
+prints and return value (the list of losses).  The loop wires together the
+substrate: the seeded data pipeline, the step of ``ArchSpec.make_train_step``
+(autograd with the reference's remat points, then Adam), atomic
+checkpoints, deterministic resume and straggler logging.  Weights come from
+seed 0 through the port's own init.  The step runs eagerly (the reference
+jits it).  ``--device`` picks where it runs (default ``cuda``; it raises
+when no GPU is present).  ``--mesh prod`` and ``prod-multipod`` are refused:
+the production mesh needs the sharding slice (``train/sharding.py``,
+``launch/mesh.py``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.data.pipeline import (
+    TokenPipelineConfig, audio_batch, to_device, token_batch, vlm_batch,
+)
+from repro_torch.device import resolve_device
+from repro_torch.optim.adam import AdamConfig, init_adam
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.fault import DataSkipper, StragglerDetector
+
+def make_batch_fn(spec, cfg, batch, seq, device="cuda"):
+    """``batch_id -> batch`` on ``device``: token batches, with stub image
+    embeddings for a VLM and audio frames for the encoder-decoder, drawn on
+    the host by ``data/pipeline.py``."""
+    dev = resolve_device(device)
+    vocab = getattr(cfg, "vocab")
+    pcfg = TokenPipelineConfig(vocab=vocab, seq_len=seq, global_batch=batch)
+    if spec.kind == "encdec":
+        return lambda i: to_device(audio_batch(pcfg, i, n_frames=seq, d_model=cfg.d_model), dev)
+    nfront = getattr(cfg, "n_frontend_tokens", 0)
+    if nfront:
+        return lambda i: to_device(vlm_batch(pcfg, i, n_img=nfront, d_model=cfg.d_model), dev)
+    return lambda i: to_device(token_batch(pcfg, i), dev)
+
+
+def init_train_state(spec, reduced, device="cuda"):
+    """``(params, opt_state)``: weights from seed 0 on ``device`` and a fresh
+    Adam state."""
+    params, _ = spec.init(torch.Generator().manual_seed(0), reduced=reduced,
+                          device=resolve_device(device))
+    return params, init_adam(params)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--total-steps", type=int, default=0,
+                    help="LR-schedule horizon (default: --steps); lets a "
+                         "resumed run keep the original schedule")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--mesh", default="none", choices=["none", "prod", "prod-multipod"])
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the production mesh is not ported yet; ROADMAP.md §1 item 2 "
+            "(the sharding slice: train/sharding.py, launch/mesh.py)"
+        )
+
+    spec = ARCHS[args.arch]
+    cfg = spec.cfg(args.reduced)
+    total = args.total_steps or args.steps
+    adam_cfg = AdamConfig(lr=args.lr, total_steps=total,
+                          warmup_steps=max(1, total // 20))
+
+    params, opt_state = init_train_state(spec, args.reduced, args.device)
+    step_fn = spec.make_train_step(adam_cfg, reduced=args.reduced)
+    batch_fn = make_batch_fn(spec, cfg, args.batch, args.seq, args.device)
+
+    start_step = 0
+    skipper = DataSkipper(seed=0)
+    if args.resume and args.ckpt_dir:
+        hit = ckpt.restore_latest(args.ckpt_dir, {"params": params, "opt": opt_state})
+        if hit is not None:
+            start_step, tree, extra = hit
+            params, opt_state = tree["params"], tree["opt"]
+            skipper.skip_to(start_step)
+            print(f"resumed from step {start_step}")
+
+    straggler = StragglerDetector()
+    losses = []
+    for step in range(start_step, args.steps):
+        batch = batch_fn(skipper.next_batch_id())
+        t0 = time.time()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        losses.append(loss)
+        if straggler.observe(0, dt):
+            print(f"[fault] step {step}: local worker flagged as straggler ({dt:.2f}s)")
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(
+                f"step {step:5d} loss {loss:.4f} gnorm "
+                f"{float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e} {dt:.2f}s"
+            )
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(
+                args.ckpt_dir, step + 1, {"params": params, "opt": opt_state},
+                extra={"arch": args.arch, "loss": loss},
+            )
+            ckpt.prune(args.ckpt_dir, keep=3)
+    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

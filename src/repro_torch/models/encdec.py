@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _stacked_init, _take
+from repro_torch.models.transformer import _stacked_init, _take, _unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,11 +140,14 @@ def encode(params, cfg: EncDecConfig, frames):
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     acfg = cfg.attn_cfg(False)
-    for i in range(cfg.n_layers):
-        lp = _take(params["enc"], i)
+
+    def body(x, lp):
         a, _ = L.attention(lp["attn"], L.layernorm(lp["ln1"], x), acfg, pos)
         x = x + a
-        x = x + L.mlp(lp["mlp"], L.layernorm(lp["ln2"], x), cfg.act)
+        return x + L.mlp(lp["mlp"], L.layernorm(lp["ln2"], x), cfg.act)
+
+    for lp in _unstack(params["enc"], cfg.n_layers):
+        x = L.remat(body, x, lp)
     return L.layernorm(params["ln_enc"], x)
 
 
@@ -154,18 +157,21 @@ def decode_train(params, cfg: EncDecConfig, tokens, enc_out):
     x = (L.embed(params["embed"], tokens) + params["pos_dec"][:S][None]).to(cfg.dtype)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     acfg = cfg.attn_cfg(True)
-    for i in range(cfg.n_layers):
-        lp = _take(params["dec"], i)
+
+    def body(x, lp, enc_out):
         a, _ = L.attention(lp["attn"], L.layernorm(lp["ln1"], x), acfg, pos)
         x = x + a
         a, _ = cross_attention(lp["xattn"], L.layernorm(lp["ln_x"], x), enc_out, cfg)
         x = x + a
-        x = x + L.mlp(lp["mlp"], L.layernorm(lp["ln2"], x), cfg.act)
+        return x + L.mlp(lp["mlp"], L.layernorm(lp["ln2"], x), cfg.act)
+
+    for lp in _unstack(params["dec"], cfg.n_layers):
+        x = L.remat(body, x, lp, enc_out)
     return L.layernorm(params["ln_dec"], x)
 
 
 def train_loss(params, cfg: EncDecConfig, batch):
-    """Next-token cross-entropy of the decoder, forward value."""
+    """Next-token cross-entropy of the decoder."""
     enc_out = encode(params, cfg, batch["frames"])
     x = decode_train(params, cfg, batch["tokens"][:, :-1], enc_out)
     return L.chunked_softmax_xent(params["embed"], x, batch["tokens"][:, 1:],

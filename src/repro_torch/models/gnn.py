@@ -20,6 +20,7 @@ reference's weights over.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 import time
 from typing import Optional
@@ -466,7 +467,7 @@ class _Capture:
     the graph, its static output, and the launches its capture recorded."""
 
     def __init__(self, forward, params, cfg, g: Graph, x: torch.Tensor, owner):
-        from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+        kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
         dev = x.device
         self.owner = owner
@@ -562,7 +563,7 @@ class _Capture:
         over a segment that holds tiles in ``g``, counted by the rule the
         eager wrapper applies to that segment's run index (one over a
         segment left empty runs no unit, and the eager chain makes none)."""
-        from repro_torch.kernels.scv_spmm import scv_spmm as kmod
+        kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
         self.load(params, g, x)
         self.graph.replay()

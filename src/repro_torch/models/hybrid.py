@@ -19,7 +19,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import Mamba2Config, init_mamba2, init_mamba2_state, mamba2_forward
-from repro_torch.models.transformer import _stacked_init, _take
+from repro_torch.models.transformer import _stacked_init, _take, _unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,17 +126,22 @@ def hidden_states(params, cfg: HybridConfig, tokens, positions=None, state=None)
     x0 = x
     mcfg = cfg.mamba_cfg
     sp = params["shared"]
-    for g in range(cfg.n_shared_calls):
-        # shared attention first, then `share_every` mamba blocks
-        gp = _take(params["mamba"], g)
-        gstate = _take(state, g) if state is not None else None
+
+    def group(x, gp, sp, gstate=None):
+        """Shared attention first, then ``share_every`` mamba blocks."""
         x, _ = _shared_block(sp, x, x0, cfg, positions,
                              gstate["attn"] if gstate is not None else None)
-        for i in range(cfg.share_every):
-            lp = _take(gp, i)
+        for i, lp in enumerate(_unstack(gp, cfg.share_every)):
             st = _take(gstate["ssm"], i) if gstate is not None else None
             y, _ = mamba2_forward(lp["mamba"], L.rmsnorm(lp["ln"], x), mcfg, state=st)
             x = x + y
+        return x
+
+    for g, gp in enumerate(_unstack(params["mamba"], cfg.n_shared_calls)):
+        if state is None:  # each group recomputed in the backward
+            x = L.remat(group, x, gp, sp)
+        else:
+            x = group(x, gp, sp, _take(state, g))
     x = L.rmsnorm(params["ln_final"], x)
     return x, state
 
@@ -162,7 +167,7 @@ def init_state(cfg: HybridConfig, batch, max_attn_len, device="cuda"):
 
 
 def train_loss(params, cfg: HybridConfig, batch):
-    """Next-token cross-entropy, forward value."""
+    """Next-token cross-entropy."""
     x, _ = hidden_states(params, cfg, batch["tokens"][:, :-1])
     return L.chunked_softmax_xent(params["embed"], x, batch["tokens"][:, 1:],
                                   true_vocab=cfg.vocab)

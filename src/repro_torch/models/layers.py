@@ -14,6 +14,10 @@ design: a KV cache passed to :func:`attention` or :func:`mla_attention` is
 written in place and returned (the reference threads a new one), and the
 slot arithmetic stays on the device, so no layer reads the cache length
 back to the host.
+
+:func:`remat` stands where the reference wraps a function in
+``jax.checkpoint``: when a gradient is being recorded, the function's
+activations are recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 #: Key positions at or past this are invalid (padded / unwritten slots).
 INVALID_POS = 2**29
@@ -62,6 +67,28 @@ class ParamInit:
     def full(self, shape, value: float) -> torch.Tensor:
         return torch.full(self.lead + tuple(shape), value, dtype=torch.float32,
                           device=self.device)
+
+
+def _records_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_records_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_records_grad(v) for v in tree)
+    return False
+
+
+def remat(fn, *args):
+    """``fn(*args)``; its activations are recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant: the counterpart of
+    ``jax.checkpoint``) when grad mode is on and a tensor in ``args``
+    (nested dicts included) requires a gradient.  Serving, the captured
+    decode and ``no_grad`` calls run ``fn`` plainly."""
+    if torch.is_grad_enabled() and _records_grad(args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
 
 
 def make_param(key: ParamInit, shape, axes):
@@ -244,17 +271,21 @@ def attention_blockwise(q, k, v, q_pos, k_pos, cfg: AttnConfig, kv_block=1024):
     m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
-    for j in range(nb):
-        blk = slice(j * kv_block, (j + 1) * kv_block)
-        s = torch.einsum("bqhd,bshd->bhqs", q, k[:, blk]).float() * scale
+
+    def step(m, l, acc, kcur, vcur, pcur):
+        s = torch.einsum("bqhd,bshd->bhqs", q, kcur).float() * scale
         s = _softcap(s, cfg.logit_softcap)
-        s = s + _mask_bias(q_pos, k_pos[:, blk], cfg.window, torch.float32, cfg.causal)[:, None]
+        s = s + _mask_bias(q_pos, pcur, cfg.window, torch.float32, cfg.causal)[:, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhqs,bshd->bhqd", p, v[:, blk].float())
-        m = m_new
+        acc = acc * corr[..., None] + torch.einsum("bhqs,bshd->bhqd", p, vcur.float())
+        return m_new, l, acc
+
+    for j in range(nb):
+        blk = slice(j * kv_block, (j + 1) * kv_block)
+        m, l, acc = remat(step, m, l, acc, k[:, blk], v[:, blk], k_pos[:, blk])
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
@@ -470,22 +501,25 @@ def _mla_blockwise(p, q_nope, q_rope, c, k_rope, q_pos, k_pos, cfg, scale, dtype
     m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=c.device)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=c.device)
     acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=c.device)
-    for j in range(nb):
-        blk = slice(j * kv_block, (j + 1) * kv_block)
-        ccur = c[:, blk]
+
+    def step(m, l, acc, ccur, rcur, pcur):
         kn = torch.einsum("bsr,rhd->bshd", ccur, wuk)
         vv = torch.einsum("bsr,rhd->bshd", ccur, wuv)
         s = (
             torch.einsum("bqhd,bshd->bhqs", q_nope, kn)
-            + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope[:, blk].to(dtype))
+            + torch.einsum("bqhd,bsd->bhqs", q_rope, rcur.to(dtype))
         ).float() * scale
-        s = s + _mask_bias(q_pos, k_pos[:, blk], 0, torch.float32)[:, None]
+        s = s + _mask_bias(q_pos, pcur, 0, torch.float32)[:, None]
         m_new = torch.maximum(m, s.amax(dim=-1))
         pexp = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + pexp.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhqs,bshd->bhqd", pexp, vv.float())
-        m = m_new
+        return m_new, l, acc
+
+    for j in range(nb):
+        blk = slice(j * kv_block, (j + 1) * kv_block)
+        m, l, acc = remat(step, m, l, acc, c[:, blk], k_rope[:, blk], k_pos[:, blk])
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(dtype)
 
@@ -676,8 +710,9 @@ def unembed_logits(p, x, softcap=0.0, true_vocab=None):
 
 
 def chunked_softmax_xent(p_embed, x, labels, softcap=0.0, chunk=512, mask=None, true_vocab=None):
-    """Cross-entropy (forward value) without materializing [B,S,V] at
-    once: a loop over sequence chunks, the last one zero-padded."""
+    """Cross-entropy without materializing [B,S,V] at once: a loop over
+    sequence chunks, the last one zero-padded, each chunk's logits
+    recomputed in the backward (:func:`remat`)."""
     B, S, M = x.shape
     nchunk = -(-S // chunk)
     pad = nchunk * chunk - S
@@ -689,12 +724,15 @@ def chunked_softmax_xent(p_embed, x, labels, softcap=0.0, chunk=512, mask=None, 
         mask = torch.cat([mask, mask.new_zeros((B, pad))], dim=1)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def step(p_embed, xc, lc, mc):
+        logits = unembed_logits(p_embed, xc, softcap, true_vocab=true_vocab)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return ((logz - gold) * mc).sum()
+
     for i in range(nchunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        logits = unembed_logits(p_embed, x[:, sl], softcap, true_vocab=true_vocab)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
-        nll = (logz - gold) * mask[:, sl]
-        tot = tot + nll.sum()
+        tot = tot + remat(step, p_embed, x[:, sl], labels[:, sl], mask[:, sl])
         cnt = cnt + mask[:, sl].sum()
     return tot / torch.clamp(cnt, min=1.0)

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _stacked_init, _take
+from repro_torch.models.transformer import _stacked_init, _take, _unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,16 +264,21 @@ def mamba2_lm_hidden(params, cfg: Mamba2LMConfig, tokens, state=None):
     returned; None runs the chunked form."""
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     mcfg = cfg.block_cfg
-    for i in range(cfg.n_layers):
-        lp = _take(params["blocks"], i)
-        st = _take(state, i) if state is not None else None
+
+    def block(x, lp, st=None):
         y, _ = mamba2_forward(lp["mamba"], L.rmsnorm(lp["ln"], x), mcfg, state=st)
-        x = x + y
+        return x + y
+
+    for i, lp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+        if state is None:  # each block recomputed in the backward
+            x = L.remat(block, x, lp)
+        else:
+            x = block(x, lp, _take(state, i))
     return L.rmsnorm(params["ln_final"], x), state
 
 
 def mamba2_lm_loss(params, cfg: Mamba2LMConfig, batch):
-    """Next-token cross-entropy, forward value."""
+    """Next-token cross-entropy."""
     x, _ = mamba2_lm_hidden(params, cfg, batch["tokens"][:, :-1])
     return L.chunked_softmax_xent(params["embed"], x, batch["tokens"][:, 1:],
                                   true_vocab=cfg.vocab)

@@ -254,6 +254,17 @@ def _take(tree, r):
     return {k: _take(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
 
 
+def _unstack(tree, n) -> list:
+    """The ``n`` layers of a stacked param tree, as trees of views
+    (``torch.unbind``).  A backward through them stacks each leaf's
+    gradient once; through :func:`_take` each layer would add a zero-filled
+    gradient of the whole stacked leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def hidden_states(
     params,
     cfg: LMConfig,
@@ -276,17 +287,37 @@ def hidden_states(
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    # leading special (dense) layers — deepseek's first_dense
+    # leading special (dense) layers — deepseek's first_dense; without a
+    # cache each is recomputed in the backward (L.remat), as the reference
+    # checkpoints it
     for j in range(cfg.first_dense):
-        c = caches[f"head{j}"] if caches is not None else None
-        x, _, aux = _block_apply(params[f"head{j}"], x, cfg, "g", positions, c, True)
+        if caches is None:
+            x, aux = L.remat(
+                lambda x, p: _block_apply(p, x, cfg, "g", positions, None, True)[::2],
+                x, params[f"head{j}"],
+            )
+        else:
+            x, _, aux = _block_apply(params[f"head{j}"], x, cfg, "g", positions,
+                                     caches[f"head{j}"], True)
         aux_total = aux_total + aux
 
-    blocks = params["blocks"]
-    for r in range(cfg.n_rep):
+    def group(x, gp):
+        """One repetition of the layer pattern, without caches."""
+        aux = 0.0
         for i, kind in enumerate(cfg.layer_pattern):
-            c = _take(caches["blocks"][f"pos{i}"], r) if caches is not None else None
-            x, _, aux = _block_apply(_take(blocks[f"pos{i}"], r), x, cfg, kind, positions, c)
+            x, _, a = _block_apply(gp[f"pos{i}"], x, cfg, kind, positions)
+            aux = aux + a
+        return x, aux
+
+    blocks = _unstack(params["blocks"], cfg.n_rep)
+    for r in range(cfg.n_rep):
+        if caches is None:
+            x, aux = L.remat(group, x, blocks[r])
+            aux_total = aux_total + aux
+            continue
+        for i, kind in enumerate(cfg.layer_pattern):
+            c = _take(caches["blocks"][f"pos{i}"], r)
+            x, _, aux = _block_apply(blocks[r][f"pos{i}"], x, cfg, kind, positions, c)
             aux_total = aux_total + aux
 
     x = _apply_norm(cfg, params["ln_final"], x)
@@ -299,8 +330,8 @@ def hidden_states(
 
 
 def train_loss(params, cfg: LMConfig, batch, aux_weight=0.01):
-    """Next-token CE (+ MoE aux), forward value.  batch: {"tokens": [B,S]
-    int, "extra_embed": optional [B,n,d_model]}."""
+    """Next-token CE (+ MoE aux).  batch: {"tokens": [B,S] int,
+    "extra_embed": optional [B,n,d_model]}."""
     tokens = batch["tokens"]
     extra = batch.get("extra_embed")
     x, _, aux = hidden_states(params, cfg, tokens[:, :-1], extra_embed=extra)

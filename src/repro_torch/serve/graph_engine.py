@@ -601,6 +601,14 @@ class GraphServeEngine:
             )
         return st
 
+    @property
+    def queue(self) -> list[GraphRequest]:
+        """Read-only snapshot of the queued requests, as the reference's
+        engine gives it.  Intake is owned by the scheduler's
+        ``IntakeQueue`` (bounded, thread-safe), so every path goes through
+        its admission accounting."""
+        return self.scheduler.queue.items()
+
     def _resolve_config(self, adj: COOMatrix) -> TunedConfig:
         """The plan configuration a wave uses for ``adj``: the tuner's
         resolution for its regime under ``cfg.autotune``, else the

@@ -23,20 +23,22 @@ Without a CUDA device every test here skips: a CUDA kernel has no CPU or
 interpret mode.  ``chip_smoke.py`` makes the same checks at full size.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.scv_spmm import ref
-from repro_torch.kernels.scv_spmm import scv_spmm as kmod
-from repro_torch.kernels.scv_spmm.ops import scv_spmm_plan
+from repro_torch.kernels.scv_spmm.ops import cached_backward, scv_spmm_plan
 from repro_torch.core import scv
 from repro_torch.core.formats import COOMatrix
 from repro_torch.core.scv import coo_to_scv_tiles, dense_tile_threshold, plan_from_tiles
 from repro_torch.models.gnn import GNNConfig, build_graph, gnn_loss, init_gnn
 from repro_torch.serve.graph_engine import assemble_batched_graph, plan_launches
 from repro_torch.simul.datasets import gcn_normalize, powerlaw_edges, powerlaw_graph
+
+kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
 
 @pytest.fixture
@@ -162,10 +164,10 @@ def test_refused_launch_raises(dev, monkeypatch):
 
 def test_cuda_forward_carries_gradients(dev):
     """A loss on a CUDA forward differentiates through every aggregation
-    (the kernel's output has a grad_fn), and each parameter's gradient
-    matches plain autograd through the plain version on the card within
-    1e-4 of its largest magnitude (the backward's index_add_ sums with
-    atomics, in no fixed order)."""
+    (the kernel's output has a grad_fn; the backward's dZ is one more chain
+    of launches over the transposed plan, per layer), and each parameter's
+    gradient matches plain autograd through the plain version on the card
+    within 1e-4 of its largest magnitude (the two sum in other orders)."""
     adj = gcn_normalize(powerlaw_edges(512, 60_000, seed=2))
     g = build_graph(adj, bucket_caps="auto", with_edges=False, device=dev)
     cfg = GNNConfig(name="g", kind="gcn", d_in=32, d_hidden=64, n_classes=8)
@@ -177,7 +179,9 @@ def test_cuda_forward_carries_gradients(dev):
     flat = [p.requires_grad_(True) for ps in params.values() for p in ps.values()]
     kmod.reset_counts()
     gnn_loss(params, cfg, g, x, labels, mask).backward()
-    assert kmod.launches == 2 * plan_launches(g.plan) and kmod.dense_launches > 0
+    plan_t = cached_backward(g.plan).plan_t
+    assert kmod.launches == 2 * (plan_launches(g.plan) + plan_launches(plan_t))
+    assert kmod.dense_launches > 0
     got = [p.grad.clone() for p in flat]
     assert params["layer0"]["w"].grad is not None
 
@@ -911,3 +915,74 @@ def test_captured_decode_binds_params_and_state(dev):
         with pytest.raises(RuntimeError, match="in place"):
             CapturedDecode(lambda p, s, t, pos: (s["h"].sum(-1, keepdim=True),
                                                  {"h": s["h"] + 1}))(params, state, tok, tok)
+
+
+@pytest.mark.parametrize("graph", ["sparse", "dense-block"])
+def test_transposed_backward_on_card_bit_exact_and_repeatable(dev, graph):
+    """On integer values, features and cotangents the card's backward (dZ
+    through the kernels over the transposed plan, d/dvals by a gather)
+    equals the same backward on the CPU bit for bit, two backwards give the
+    same bits, and each launches the transposed plan's segments once."""
+    if graph == "sparse":
+        adj = gcn_normalize(powerlaw_graph(3000, 12_000, seed=4))
+        kw = dict(bucket_caps=(8, 32, 128))
+    else:
+        adj = gcn_normalize(powerlaw_edges(1024, 150_000, seed=4))
+        kw = dict(bucket_caps="auto")
+    cpu_plan = _ints(build_graph(adj, with_edges=False, device="cpu", **kw).plan, 5)
+    gen = torch.Generator().manual_seed(6)
+    z = torch.randint(-4, 5, (cpu_plan.shape[1], 40), generator=gen).float()
+    cot = torch.randint(-4, 5, (cpu_plan.padded_shape[0], 40), generator=gen).float()
+
+    def grads(plan, device):
+        vals = [s.vals.detach().clone().requires_grad_(True) for s in plan.segments]
+        zz = z.to(device).clone().requires_grad_(True)
+        p = dataclasses.replace(plan, segments=tuple(
+            dataclasses.replace(s, vals=v) for s, v in zip(plan.segments, vals)))
+        (scv_spmm_plan(p, zz) * cot.to(device)).sum().backward()
+        return [zz.grad] + [v.grad for v in vals]
+
+    card_plan = cpu_plan.to(dev)
+    want = grads(cpu_plan, "cpu")
+    first = grads(card_plan, dev)
+    kmod.reset_counts()
+    again = grads(card_plan, dev)
+    torch.cuda.synchronize()
+    plan_t = cached_backward(card_plan).plan_t
+    assert kmod.launches == plan_launches(card_plan) + plan_launches(plan_t)
+    for a, b, w in zip(first, again, want):  # an empty segment's values get no gradient
+        assert (a is None and b is None and w is None) or (
+            torch.equal(a, b) and torch.equal(a.cpu(), w))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "olmoe-1b-7b", "whisper-small"])
+def test_train_step_on_card_equals_cpu(dev, arch):
+    """One ``make_train_step`` step of a reduced config in float32 (TF32
+    off) from the same weights and batch on the card and on the CPU: the
+    loss and every leaf of the new params and of Adam's ``m`` and ``v``
+    within 1e-4 of the largest magnitude (params: of max(1, it)), as
+    ``chip_smoke.py`` phase 17(a)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.adam import AdamConfig, init_adam
+    from repro_torch.tree import leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = ARCHS[arch]
+    cfg = spec.cfg(reduced=True)
+    params, _ = spec.init(torch.Generator().manual_seed(0), reduced=True, device="cpu")
+    batch = make_batch_fn(spec, cfg, 4, 16, "cpu")(0)
+    step = spec.make_train_step(AdamConfig(lr=1e-5, warmup_steps=2, total_steps=10),
+                                reduced=True)
+
+    def run(p, device):
+        p2, st, m = step(p, init_adam(p), {k: v.to(device) for k, v in batch.items()})
+        return [m["loss"]], leaves(p2), leaves(st["m"]), leaves(st["v"])
+
+    want = run(params, "cpu")
+    got = run(tree_map(lambda t: t.to(dev), params), dev)
+    for j, (gs, ws) in enumerate(zip(got, want)):
+        for g, w in zip(gs, ws):
+            scale = w.abs().max().item()
+            scale = max(1.0, scale) if j == 1 else scale
+            assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale

@@ -14,6 +14,7 @@ D @ Z in another order than the gather does).  The CUDA kernels run in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on the card.
 """
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +31,9 @@ from repro_torch.core.scv import (
     coo_to_scv_tiles, dense_tile_threshold, plan_from_tiles, plan_from_tiles_bucketed,
 )
 from repro_torch.kernels.scv_spmm import ops, ref
-from repro_torch.kernels.scv_spmm import scv_spmm as kmod
 from repro_torch.simul.datasets import powerlaw_edges
+
+kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
 T = 16
 N = 64

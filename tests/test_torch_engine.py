@@ -76,6 +76,29 @@ def test_engine_matches_reference_engine(kind):
     assert tm["device"] == "cpu"
 
 
+def test_queue_snapshot_matches_reference_engine():
+    """``queue``: the queued requests, in order, as the reference's engine
+    lists them on the same submissions; a snapshot (a new list each time)
+    that ``run()`` empties."""
+    pool = _pool()
+    je, te = _engines("gcn")
+    assert te.queue == [] and je.queue == []
+    rng = np.random.default_rng(2)
+    for rid in range(6):
+        a = pool[rid % len(pool)]
+        x = rng.standard_normal((a.shape[0], 8)).astype(np.float32)
+        je.submit(jeng.GraphRequest(rid=rid, adj=JCOO(a.rows, a.cols, a.vals, a.shape),
+                                    x=x, model="gcn"))
+        te.submit(teng.GraphRequest(rid=rid, adj=a, x=x, model="gcn"))
+    got = te.queue
+    assert [r.rid for r in got] == [r.rid for r in je.queue] == list(range(6))
+    got.clear()
+    assert len(te.queue) == 6
+    te.run()
+    je.run()
+    assert te.queue == [] and je.queue == []
+
+
 def test_async_loop_serves_like_sync():
     pool = _pool()
     _, sync = _engines("gcn")

@@ -58,7 +58,10 @@ def test_port_has_modules():
             "repro_torch.configs.internvl2_76b", "repro_torch.serve.engine",
             "repro_torch.launch.serve", "repro_torch.models.ssm", "repro_torch.models.hybrid",
             "repro_torch.models.encdec", "repro_torch.configs.mamba2_780m",
-            "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.whisper_small"} <= names
+            "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.whisper_small",
+            "repro_torch.optim.adam", "repro_torch.data.pipeline",
+            "repro_torch.train.checkpoint", "repro_torch.train.fault",
+            "repro_torch.launch.train", "repro_torch.tree"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],

@@ -10,6 +10,7 @@ inputs must match bit for bit; real-valued inputs within rtol = atol =
 in ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on the card.
 """
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +27,9 @@ from repro_torch.core.aggregate import aggregate_coo_segsum, aggregate_scv_plan
 from repro_torch.core.formats import coo_from_dense
 from repro_torch.core.scv import RunIndex, coo_to_scv_tiles, plan_from_tiles_bucketed
 from repro_torch.kernels.scv_spmm import ops, ref
-from repro_torch.kernels.scv_spmm import scv_spmm as kmod
 from repro_torch.serve.graph_engine import plan_launches
+
+kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
 
 def _int_dense(rng, m, density):
@@ -248,3 +250,20 @@ def test_threads_for_refuses_oversized_tile():
 def test_run_index_device_copy():
     ri = RunIndex.of(np.array([0, 0, 2], np.int32), np.array([1, 0, 3]), "cpu")
     assert ri.ptr.tolist() == [0, 2, 3] and ri.ptr.device.type == "cpu" and ri.max_nnz == 3
+
+
+def test_package_exports_the_reference_names():
+    """The kernel package exports the reference package's ``__all__``:
+    ``scv_spmm`` is the op (it hides the launch-wrapper submodule of that
+    name, which stays reachable by its full module name)."""
+    import sys
+
+    import repro.kernels.scv_spmm as jpkg
+    import repro_torch.kernels.scv_spmm as tpkg
+
+    assert tpkg.__all__ == jpkg.__all__
+    assert tpkg.scv_spmm is ops.scv_spmm
+    assert tpkg.scv_spmm_reference is ref.scv_spmm_reference
+    assert tpkg.ensure_row_coverage is ops.ensure_row_coverage
+    assert kmod is sys.modules["repro_torch.kernels.scv_spmm.scv_spmm"]
+    assert callable(kmod.scv_spmm_runs) and callable(kmod.reset_counts)

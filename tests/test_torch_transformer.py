@@ -247,19 +247,26 @@ def test_registry():
 
 def test_unported_kinds_and_training_raise():
     """Every kind inits on ``meta`` (the SSM, hybrid and encoder-decoder
-    ones since they were ported); training raises for every kind, naming
-    the training stack; an unknown kind is refused."""
+    ones since they were ported) and makes a train step (since the
+    training stack was ported); an unknown kind is refused, its train step
+    too; what still raises is the production mesh, naming the sharding
+    slice."""
     from repro_torch.configs.common import ArchSpec
+    from repro_torch.launch import train as train_mod
 
     for name, spec in T_ARCHS.items():
         params, _ = spec.init(None, reduced=True, device="meta")
         assert all(t.device.type == "meta" for _, t in TT.leaf_paths(params)), name
-        with pytest.raises(NotImplementedError, match="training"):
-            spec.make_train_step()
+        assert callable(spec.make_train_step()), name
     bad = dataclasses.replace(T_ARCHS["olmoe-1b-7b"], kind="gnn")
     with pytest.raises(ValueError):
         bad.init(None, reduced=True, device="meta")
+    with pytest.raises(ValueError):
+        bad.make_train_step()
     assert isinstance(bad, ArchSpec)
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        train_mod.main(["--arch", "olmoe-1b-7b", "--reduced", "--mesh", "prod",
+                        "--device", "cpu"])
 
 
 def test_init_defaults_to_the_card():

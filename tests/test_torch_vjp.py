@@ -10,6 +10,11 @@
   reference's weights carried over by ``params_from_jax``.
 * The training loop of ``tests/test_system.py::
   test_gnn_training_scv_backend_improves``, on the port.
+* The backward through the transposed plan: the four kinds against
+  ``jax.grad`` with three-segment plans and dense tiles, bit for bit
+  against the earlier plain backward (``index_add_``) on integers, the
+  transposed plan's leaves against the reference's builders on Âᵀ, and its
+  lifetime (reweighted plans, deltas, the ``transposed`` check).
 
 Tolerances: gradients within 1e-5 of the largest magnitude of the
 reference's gradient (at least 1): float32 sums in another order.
@@ -32,9 +37,11 @@ from repro.models import gnn as jgnn
 from repro_torch.core.aggregate import aggregate_scv_plan
 from repro_torch.core.formats import COOMatrix
 from repro_torch.core.scv import SCVBucketedPlan, coo_to_scv_tiles, plan_from_tiles
-from repro_torch.core.scv import plan_from_tiles_bucketed
+from repro_torch.core.scv import dense_tile_threshold, plan_from_tiles_bucketed, transposed_plan
+from repro_torch.core.validate import validate_plan
 from repro_torch.kernels.scv_spmm import ops
 from repro_torch.models import gnn as tgnn
+from repro_torch.stream.delta import DeltaBatch, apply_delta
 from repro_torch.simul.datasets import gcn_normalize, powerlaw_graph
 
 KINDS = ["gcn", "sage", "gin", "gat"]
@@ -278,3 +285,157 @@ def test_gnn_training_improves_on_the_port():
     with torch.no_grad():
         loss1 = float(tgnn.gnn_loss(params, cfg, g, x, labels, mask))
     assert loss1 < loss0 - 0.1, (loss0, loss1)
+
+
+# ---------------------------------------------------------------------------
+# the backward through the transposed plan
+# ---------------------------------------------------------------------------
+def _dense_block_graph(n=192, seed=3):
+    """A graph whose T = 16 tiles are partly dense (nnz > T²/16 = 16 on the
+    ladder (4, 16, 64)): three segments, the top one through the dense
+    branch in both chains."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([rng.integers(0, n, 6 * n), rng.integers(0, 32, 900)])
+    cols = np.concatenate([rng.integers(0, n, 6 * n), rng.integers(64, 96, 900)])
+    a = gcn_normalize(COOMatrix(rows.astype(np.int32), cols.astype(np.int32),
+                                np.ones(rows.size, np.float32), (n, n)))
+    return JCOO(a.rows, a.cols, a.vals, a.shape), a
+
+
+DENSE_KW = dict(tile=16, bucket_caps=(4, 16, 64))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_transposed_backward_grads_match_jax(rng, kind):
+    """``gnn_loss``'s gradients through the transposed plan (bucketed, more
+    than one segment, dense tiles in both directions) against ``jax.grad``
+    of the reference, and the transposed plan kept for the next backward."""
+    ja, ta = _dense_block_graph()
+    jcfg, tcfg, jparams = _models(kind)
+    n = ta.shape[0]
+    x = rng.standard_normal((n, 12)).astype(np.float32)
+    labels = rng.integers(0, 5, n)
+    mask = (rng.random(n) < 0.7).astype(np.float32)
+    jg = jgnn.build_graph(ja, **DENSE_KW)
+    want = jax.grad(lambda p: jgnn.gnn_loss(
+        p, jcfg, jg, jnp.asarray(x), jnp.asarray(labels), jnp.asarray(mask)))(jparams)
+    tparams = tgnn.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    flat = [p.requires_grad_(True) for ps in tparams.values() for p in ps.values()]
+    tg = tgnn.build_graph(ta, device="cpu", **DENSE_KW)
+    assert len([s for s in tg.plan.segments if s.n_tiles]) == 3
+    assert tg.plan.segments[-1].runs.max_nnz > dense_tile_threshold(16)
+    args = (torch.from_numpy(x), torch.from_numpy(labels), torch.from_numpy(mask))
+    grads = torch.autograd.grad(tgnn.gnn_loss(tparams, tcfg, tg, *args), flat)
+    bw = ops.cached_backward(tg.plan)
+    assert bw is not None
+    t_live = [s for s in bw.plan_t.segments if s.n_tiles]
+    assert len(t_live) == 3 and t_live[-1].runs.max_nnz > dense_tile_threshold(16)
+    i = 0
+    for layer, ps in tparams.items():
+        for name in ps:
+            assert_grad_close(grads[i].numpy(), want[layer][name])
+            i += 1
+    again = torch.autograd.grad(tgnn.gnn_loss(tparams, tcfg, tg, *args), flat)
+    assert ops.cached_backward(tg.plan) is bw
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def _plain_backward(plan, z, g):
+    """The chain's backward before the transposed plan: ``dz`` summed by
+    ``index_add_`` over every segment's live entries, ``dvals`` by a
+    gather and a row-sum."""
+    dz, dvals = torch.zeros_like(z), []
+    for seg in _segments(plan):
+        slot = torch.arange(seg.vals.shape[1])
+        t, s = (slot[None, :] < seg.nnz_in_tile[:, None]).nonzero(as_tuple=True)
+        grow = seg.tile_row.long()[t] * seg.tile + seg.rows[t, s].long()
+        gcol = seg.tile_col.long()[t] * seg.tile + seg.cols[t, s].long()
+        dv = torch.zeros_like(seg.vals)
+        dv[t, s] = (g[grow] * z[gcol]).sum(-1)
+        dvals.append(dv)
+        dz.index_add_(0, gcol, g[grow] * seg.vals[t, s][:, None])
+    return dz, dvals
+
+
+@pytest.mark.parametrize("layout", ["single", "buckets", "dense"])
+def test_transposed_backward_bit_exact_on_integers(rng, layout):
+    """On integer values, cotangents and features the transposed chain's
+    ``dz`` and the live-index ``dvals`` equal the old plain backward's bit
+    for bit (integer sums are exact in any order)."""
+    if layout == "dense":
+        _, tc = _dense_block_graph()
+        tc = COOMatrix(tc.rows, tc.cols, rng.integers(-3, 4, tc.nnz).astype(np.float32), tc.shape)
+        tp = plan_from_tiles_bucketed(coo_to_scv_tiles(tc, 16, cap=64), (4, 16, 64))
+    else:
+        _, tc = _coo(rng)
+        tc = COOMatrix(tc.rows, tc.cols, rng.integers(-3, 4, tc.nnz).astype(np.float32), tc.shape)
+        tp = _plans(_coo(rng)[0], tc, layout)[1]
+    n = tc.shape[0]
+    z = torch.from_numpy(rng.integers(-4, 5, (n, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.integers(-4, 5, (tp.padded_shape[0], 8)).astype(np.float32))
+    vals = [s.vals.clone().requires_grad_(True) for s in _segments(tp)]
+    zz = z.clone().requires_grad_(True)
+    plan = _with_vals(tp, vals, SCVBucketedPlan)
+    (ops.scv_spmm_plan(plan, zz) * g).sum().backward()
+    want_dz, want_dv = _plain_backward(tp, z, g)
+    assert torch.equal(zz.grad, want_dz)
+    for v, w in zip(vals, want_dv):
+        assert torch.equal(v.grad, w)
+
+
+@pytest.mark.parametrize("layout", ["single", "buckets"])
+def test_transposed_plan_equals_reference_builders_on_the_transpose(rng, layout):
+    """The port's ``transposed_plan`` against a plan the reference's own
+    builders make from Âᵀ's COO (duplicates included), leaf for leaf; its
+    perm leaf points each slot at its forward entry, whose source COO
+    entry is the reference's perm."""
+    jc, tc = _coo(rng)
+    _, tp = _plans(jc, tc, layout)
+    at = JCOO(jc.cols, jc.rows, jc.vals, (jc.shape[1], jc.shape[0]))
+    caps = tuple(s.cap for s in _segments(tp))
+    jt = j_tiles(at, 16, cap=caps[-1])
+    want = j_bucketed(jt, caps) if layout == "buckets" else j_plan(jt)
+    got = transposed_plan(tp)
+    assert type(got) is type(tp)
+    fwd_perm = torch.cat([s.perm.reshape(-1) for s in _segments(tp)] + [torch.tensor([-1])])
+    for gs, ws in zip(_segments(got), _segments(want)):
+        for name in ("tile_row", "tile_col", "rows", "cols", "vals", "nnz_in_tile"):
+            np.testing.assert_array_equal(getattr(gs, name).numpy(), np.asarray(getattr(ws, name)))
+        assert (gs.tile, gs.cap, gs.shape, gs.order) == (ws.tile, ws.cap, tuple(ws.shape), ws.order)
+        np.testing.assert_array_equal(fwd_perm[gs.perm.long()].numpy(), np.asarray(ws.perm))
+
+
+def test_transposed_plan_follows_its_plan(rng):
+    """Kept per run index: a reweighted plan (GAT) reuses it, a delta's
+    patched plan gets its own, and leaves changed in place under it fail
+    the ``transposed`` check as they fail ``run-index``."""
+    n = 48
+    _, coo = _coo(rng, n=n, density=0.1, duplicates=False)
+    t = coo_to_scv_tiles(coo, 16, cap=64)
+    plan = plan_from_tiles(t, with_perm=False)
+    assert validate_plan(plan).ok and not validate_plan(plan).failed("transposed")
+    z = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32)).requires_grad_(True)
+    ops.scv_spmm_plan(plan, z).sum().backward()
+    bw = ops.cached_backward(plan)
+    assert bw is not None and ops.cached_backward(plan.with_vals(plan.vals * 2)) is bw
+    rep = validate_plan(plan)
+    assert rep.ok and [c.invariant for c in rep.checks].count("transposed") == 1
+
+    have = set(zip(coo.rows.tolist(), coo.cols.tolist()))
+    free = next((r, c) for r in range(n) for c in range(n) if (r, c) not in have)
+    with_perm = plan_from_tiles(coo_to_scv_tiles(coo, 16, cap=64))
+    ops.scv_spmm_plan(with_perm, z).sum().backward()
+    patched = apply_delta(with_perm, DeltaBatch.of(inserts=[(*free, 2.0)]))
+    assert ops.cached_backward(with_perm) is not None and ops.cached_backward(patched) is None
+    zp = z.detach().clone().requires_grad_(True)
+    ops.scv_spmm_plan(patched, zp).sum().backward()
+    assert validate_plan(patched).ok
+    dense = np.zeros((n, n), np.float32)
+    np.add.at(dense, (coo.rows, coo.cols), coo.vals)
+    dense[free] += 2.0
+    np.testing.assert_allclose(zp.grad.numpy(), dense.T @ np.ones((n, 4), np.float32),
+                               rtol=1e-5, atol=1e-5)
+
+    assert apply_delta(t, DeltaBatch.of(inserts=[(*free, 3.0)]), inplace=True) is t
+    failed = {c.invariant for c in validate_plan(plan).failures}
+    assert failed == {"run-index", "transposed"}
