@@ -203,9 +203,32 @@ Phases, each of which fails the run on error:
     8 steps against 4, a checkpoint, ``--resume`` and 4 more, final
     losses within 1e-5 relative (whether the bits agree is printed).
 
-Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 sets the
+18. The sharding rules and meshes (``train/sharding.py``,
+    ``launch/mesh.py``), the int8 gradient compression
+    (``optim/compress.py``) and the dry run (``launch/dryrun.py``), which
+    reach no SCV kernel.  (a) ``launch/train.py``'s ``main`` on phase
+    17(b)'s cell (``mamba2-780m`` at full width and depth, float32, B = 4,
+    S = 512), 2 steps with ``--mesh prod`` (the 16x16 mesh laid over the
+    card) and 2 with ``--mesh none``: the losses equal bit for bit; the
+    ``[mesh]`` line gives each of the 256 positions' bytes of params and
+    Adam state.  (b) ``compressed_psum`` over four slots of the card on
+    gradient and error trees of Mamba2-780M's full shapes from a seeded
+    generator: the mean and every member's residual equal the same call on
+    the CPU bit for bit on a seeded sample of leaves; one call timed (CUDA
+    events) beside its byte bound; 30 steps of error feedback keep the
+    accumulated compressed mean within one quantization step of the true
+    mean.  (c) ``dryrun_cell`` on the 16x16 mesh for every shape of one
+    arch of each family (``olmoe-1b-7b``, ``mamba2-780m``, ``zamba2-2.7b``,
+    ``whisper-small``), counted on ``meta`` in worker processes while (a)
+    and (b) run; each cell it finds ``fits_one_card`` runs again with the
+    card as its device, which runs its step there: the counted argument
+    bytes must not exceed the measured ``max_memory_allocated``, and at
+    least one cell must run.  ``python -m repro_torch.launch.dryrun --all``
+    counts every cell.
+
+Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 sets the
 kernels' launch counts to 0 just before it drives its path and reads them
-just after (phases 15, 16 and 17 require none).  The line before the last is a JSON
+just after (phases 15 to 18 require none).  The line before the last is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -424,6 +447,197 @@ def train_drive(dev, card: str) -> dict:
     return dict(worst=worst, full=full, restart=restart, seconds=seconds)
 
 
+def mesh_train(args, dev, card: str) -> dict:
+    """18(a): ``args`` (``MESH_ARGS``: ``TRAIN_ARCH`` at full width and
+    depth, float32, phase 17(b)'s cell, 2 steps) through
+    ``launch/train.py``'s ``main`` on ``dev`` with ``--mesh prod``, then
+    with ``--mesh none``: the losses equal bit for bit, and the ``[mesh]``
+    line (each of the 256 positions' bytes of params and Adam state)
+    printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_mod
+
+    args = list(args) + ["--device", str(dev)]
+    runs, seconds = {}, {}
+    for mesh in ("prod", "none"):
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            t0 = time.perf_counter()
+            runs[mesh] = train_mod.main(args + ["--mesh", mesh])
+            torch.cuda.synchronize()
+            seconds[mesh] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        if mesh == "prod":
+            lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[mesh]")]
+    check(len(lines) == 1 and "16x16 ('data', 'model') over 1 distinct device(s)" in lines[0]
+          and "each of the 256 positions" in lines[0], f"18(a): mesh line {lines}")
+    check(runs["prod"] == runs["none"] and all(np.isfinite(runs["none"])),
+          f"18(a): --mesh prod losses {runs['prod']} against --mesh none {runs['none']}")
+    print(lines[0] + f" [{card}]")
+    print(f"[mesh] 18(a) launch/train.py main {' '.join(args)}, float32: losses "
+          f"--mesh prod {runs['prod']} == --mesh none {runs['none']} (bit for bit); "
+          f"{seconds['prod']:.1f} s and {seconds['none']:.1f} s (host clock, init included)")
+    return dict(losses=runs["none"], seconds=seconds)
+
+
+def psum_drive(spec, dev, card: str) -> dict:
+    """18(b): ``compressed_psum`` over a pool of ``PSUM_SLOTS`` slots of
+    ``dev``, on gradient trees of ``spec``'s shapes (``TRAIN_ARCH`` at full
+    size) drawn from a seeded generator there, with error trees: the mean and every
+    residual equal the same call on the CPU bit for bit on a seeded sample
+    of leaves; one call timed (CUDA events) beside its byte bound; then
+    ``PSUM_STEPS`` steps of error feedback from zero residuals, after which
+    the accumulated compressed mean is within one quantization step (the
+    last call's shared scale) of the accumulated true mean, leaf by leaf."""
+    from repro_torch.core.exec import pool_device
+    from repro_torch.models.transformer import leaf_paths
+    from repro_torch.optim.compress import compressed_psum, ef_state
+
+    pool = tuple(pool_device(dev) for _ in range(PSUM_SLOTS))
+    shapes = dict(leaf_paths(spec.init(None, device="meta")[0]))
+    n = sum(t.numel() for t in shapes.values())
+    gen = torch.Generator(device=pool[0]).manual_seed(0)
+
+    def draw(scale=1.0):
+        return [{k: scale * torch.randn(tuple(t.shape), generator=gen, device=d)
+                 for k, t in shapes.items()} for d in pool]
+
+    grads, errors = draw(), draw(0.01)
+    mean, new_err = compressed_psum(grads, errors, "pod")
+    rng = np.random.default_rng(0)
+    small = sorted(k for k, t in shapes.items() if t.numel() <= PSUM_CPU_MAX)
+    sample = sorted(rng.choice(small, size=PSUM_CPU_LEAVES, replace=False).tolist())
+    cpu_mean, cpu_err = compressed_psum([{k: g[k].cpu() for k in sample} for g in grads],
+                                        [{k: e[k].cpu() for k in sample} for e in errors], "pod")
+    for k in sample:
+        check(torch.equal(mean[k].cpu(), cpu_mean[k]), f"18(b): mean {k} card != CPU")
+        for i in range(PSUM_SLOTS):
+            check(torch.equal(new_err[i][k].cpu(), cpu_err[i][k]),
+                  f"18(b): member {i} residual {k} card != CPU")
+    del mean, new_err
+    ms = device_ms(lambda: compressed_psum(grads, errors, "pod"), 3)
+    # each member's g and e read once, its residual written once, the mean once
+    nbytes = (2 * 4 * PSUM_SLOTS + 4 * PSUM_SLOTS + 4) * n
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    errors = [ef_state(g) for g in grads]
+    total_true = {k: torch.zeros(tuple(t.shape), device=pool[0]) for k, t in shapes.items()}
+    total_comp = {k: torch.zeros(tuple(t.shape), device=pool[0]) for k, t in shapes.items()}
+    t0 = time.perf_counter()
+    for step in range(PSUM_STEPS):
+        grads = draw()
+        if step == PSUM_STEPS - 1:  # the last call's shared scale, leaf by leaf
+            scale = {k: max(float((g[k] + e[k]).abs().max()) for g, e in zip(grads, errors))
+                     / 127.0 for k in shapes}
+        mean, errors = compressed_psum(grads, errors, "pod")
+        for k in shapes:
+            total_true[k] += sum(g[k] for g in grads) / PSUM_SLOTS
+            total_comp[k] += mean[k]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    worst = max(float((total_true[k] - total_comp[k]).abs().max()) / scale[k] for k in shapes)
+    check(worst <= 1.0, f"18(b): accumulated mean off the true mean by {worst:.3f} "
+          "quantization steps")
+    print(f"[psum] 18(b) compressed_psum over {PSUM_SLOTS} slots of the card, {spec.name} "
+          f"gradient trees ({len(shapes)} leaves, {n:,} entries a member, "
+          f"{4 * n * PSUM_SLOTS / 1e9:.2f} GB of gradients + as much in errors): mean and "
+          f"residuals equal the CPU's bit for bit on leaves {sample}; one call "
+          f"{ms:.2f} ms (CUDA events), bound {bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB: g and e "
+          f"read, residuals and the mean written, at 3.35 TB/s; {ms / bound_ms:.1f}x); "
+          f"{PSUM_STEPS} error-feedback steps in {loop_s:.1f} s: accumulated mean within "
+          f"{worst:.3f} of one quantization step of the true mean (the last call's scale, "
+          f"{min(scale.values()):.3e}-{max(scale.values()):.3e}) [{card}]")
+    del grads, errors, total_true, total_comp, mean
+    torch.cuda.empty_cache()
+    return dict(ms=ms, bound_ms=bound_ms, worst=worst)
+
+
+def dryrun_cells() -> list:
+    """18(c)'s cells: one arch of each family, each of its shapes (one of
+    each shape kind, both decode shapes where it lists two), the dearest
+    first."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.common import SHAPES
+
+    order = {"train": 0, "prefill": 1, "decode": 2}
+    cells = [(a, s) for a in DRYRUN_ARCHS for s in ARCHS[a].shapes]
+    return sorted(cells, key=lambda c: order[SHAPES[c[1]].kind])
+
+
+def dryrun_drive(counted: dict, dev, card: str) -> dict:
+    """18(c): the counts of ``dryrun_cell`` on the 16x16 mesh (made in
+    worker processes while 18(a) and 18(b) ran); each cell it finds
+    ``fits_one_card`` is run again with ``device=dev``, which runs the step
+    on the card: the counted argument bytes must not exceed the measured
+    ``max_memory_allocated`` less what earlier phases still held, and the
+    count must be the same."""
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    on_card = {}
+    for (a, s), r in counted.items():
+        check(r["status"] == "ok" and r["flops_total"] > 0 and r["memory"]["argument_bytes"] > 0,
+              f"18(c) {a} x {s}: {r}")
+        w = r["whole_cell"]
+        print(f"[dryrun] 18(c) {a} x {s} on {r['mesh']}: {r['flops_total']:.4e} FLOP a step "
+              f"(counted on meta in {r['count_s']:.1f} s), {r['memory']['argument_bytes']:,} B of "
+              f"arguments a position; one card would hold {w['argument_bytes'] / 1e9:.2f} GB of "
+              f"arguments, peak {w['peak_bytes'] / 1e9:.2f} GB: "
+              f"{'fits' if r['fits_one_card'] else 'does not fit'} one card")
+        if r["fits_one_card"]:
+            got = dryrun_cell(a, s, verbose=False, device=str(dev))
+            run = got["card"]
+            check(run is not None and run["finite"], f"18(c) {a} x {s}: no finite card run")
+            check(got["flops_total"] == r["flops_total"], f"18(c) {a} x {s}: counts differ")
+            peak = run["max_memory_allocated"] - run["allocated_before"]
+            check(w["argument_bytes"] <= peak, f"18(c) {a} x {s}: {w['argument_bytes']} B "
+                  f"counted > {peak} B measured")
+            on_card[(a, s)] = dict(ms=run["ms"], ms_first=run["ms_first"], peak=peak,
+                                   counted=w["argument_bytes"], meta_peak=w["peak_bytes"],
+                                   flops=r["flops_total"])
+            print(f"[dryrun] 18(c) {a} x {s} on the card: step {run['ms']:.2f} ms (first "
+                  f"{run['ms_first']:.2f}; CUDA events), max_memory_allocated "
+                  f"{run['max_memory_allocated'] / 1e9:.2f} GB, less the "
+                  f"{run['allocated_before'] / 1e9:.2f} GB held before: {peak / 1e9:.2f} GB "
+                  f"against {w['argument_bytes'] / 1e9:.2f} GB of arguments "
+                  f"counted (measured/counted {peak / w['argument_bytes']:.3f}) and "
+                  f"{w['peak_bytes'] / 1e9:.2f} GB peak counted on meta "
+                  f"({peak / w['peak_bytes']:.3f}) [{card}]")
+    check(len(on_card) >= 1, "18(c): no cell ran on the card")
+    return on_card
+
+
+def mesh_drive(dev, card: str) -> dict:
+    """Phase 18: the sharding rules and meshes, the int8 compression and the
+    dry run (no SCV kernel on the path)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.dryrun import dryrun_cell
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
+
+    t0 = time.perf_counter()
+    kmod.reset_counts()
+    with ProcessPoolExecutor(DRYRUN_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as workers:
+        futures = {c: workers.submit(dryrun_cell, *c, False, False, "cpu")
+                   for c in dryrun_cells()}
+        mesh = mesh_train(MESH_ARGS, dev, card)
+        psum = psum_drive(ARCHS[TRAIN_ARCH], dev, card)
+        t_wait = time.perf_counter()
+        counted = {c: f.result() for c, f in futures.items()}
+        waited = time.perf_counter() - t_wait
+    on_card = dryrun_drive(counted, dev, card)
+    launches = (kmod.launches, kmod.scalar_launches)
+    check(launches == (0, 0), f"phase 18 launched SCV kernels: {launches}")
+    seconds = time.perf_counter() - t0
+    print(f"[mesh] phase 18: {seconds:.1f} s ({len(counted)} cells counted by "
+          f"{DRYRUN_WORKERS} workers, {waited:.1f} s waited for them after 18(b)); SCV kernel "
+          "launches: 0 (train/sharding.py, launch/mesh.py, optim/compress.py, "
+          "launch/hlocost.py and launch/dryrun.py reach no pl.pallas_call)")
+    return dict(mesh=mesh, psum=psum, on_card=on_card, seconds=seconds)
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/scv_spmm/csrc/scv_spmm.cu"
@@ -489,6 +703,16 @@ TRAIN_ARCH_PARAMS = 780_382_464  # the reference's count for mamba2-780m
 # (c) restart: the reference's tests/test_system.py case, on the card
 RESTART_ARGS = ["--arch", "qwen1.5-32b", "--reduced", "--batch", "2", "--seq", "16",
                 "--lr", "1e-3", "--total-steps", "8"]
+# phase 18: (a) --mesh prod against --mesh none on phase 17(b)'s cell
+MESH_ARGS = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ)]
+# (b) compressed_psum over four slots of the card; leaves held against the
+# CPU: a seeded sample of those up to 100M entries (the CPU call takes seconds)
+PSUM_SLOTS, PSUM_STEPS, PSUM_CPU_LEAVES, PSUM_CPU_MAX = 4, 30, 3, 100_000_000
+# (c) the dry run: one arch of each family (the cheapest to count of its
+# family), counted in worker processes meanwhile
+DRYRUN_ARCHS = ("olmoe-1b-7b", "mamba2-780m", "zamba2-2.7b", "whisper-small")
+DRYRUN_WORKERS = 6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3336,6 +3560,9 @@ def main() -> int:
 
     # -- 17. the training stack -----------------------------------------------------
     train_drive(dev, smi)
+
+    # -- 18. sharding rules, meshes, compression, the dry run -------------------------
+    mesh_drive(dev, smi)
 
     main_row = rows[("serving composite", cfg.d_hidden)]
     dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]

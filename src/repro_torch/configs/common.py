@@ -8,8 +8,9 @@ Every family inits, computes its loss, trains (``make_train_step``: one
 eager step of autograd and Adam, with gradient accumulation over
 microbatches) and makes its prefill and decode steps.  Abstract trees
 (``make_abstract``, ``abstract_opt_state``, ``bf16_params``) are tensors on
-the ``meta`` device.  ``input_specs`` and ``state_specs`` wait for the
-sharding slice (``ROADMAP.md`` §1 item 2).
+the ``meta`` device, and so are ``input_specs`` (a shape's batch) and
+``state_specs`` (the decode-time state and its logical axes), which the
+dry run (``launch/dryrun.py``) shards and counts.
 """
 from __future__ import annotations
 
@@ -168,6 +169,66 @@ class ArchSpec:
             return decode_step(params, cfg, batch["token"], state, batch["pos"])
 
         return step
+
+    # -- abstract inputs, on the meta device ----------------------------------
+    def input_specs(self, shape_name: str, reduced=False) -> dict:
+        """The batch for ``shape_name`` as tensors on ``meta``: the
+        reference's ``ShapeDtypeStruct`` keys, shapes and dtypes."""
+        shape = SHAPES[shape_name]
+        cfg = self.cfg(reduced)
+        B = shape.global_batch if not reduced else 2
+        S = shape.seq_len if not reduced else min(shape.seq_len, 64)
+        i32, f32 = torch.int32, torch.float32
+        d = getattr(cfg, "d_model")
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"token": meta((B, 1), i32), "pos": meta((B, 1), i32)}
+        extra = 1 if shape.kind == "train" else 0  # the shifted target
+        if self.kind == "encdec":
+            batch = {"frames": meta((B, S, d), f32)}
+            if extra:
+                batch["tokens"] = meta((B, S + 1), i32)
+            return batch
+        nfront = getattr(cfg, "n_frontend_tokens", 0)
+        batch = {"tokens": meta((B, S - nfront + extra), i32)}
+        if nfront:
+            batch["extra_embed"] = meta((B, nfront, d), f32)
+        return batch
+
+    def state_specs(self, shape_name: str, reduced=False):
+        """``(shape tree on meta, axes tree)`` of the decode-time state."""
+        shape = SHAPES[shape_name]
+        cfg = self.cfg(reduced)
+        B = shape.global_batch if not reduced else 2
+        S = shape.seq_len if not reduced else min(shape.seq_len, 64)
+        if self.kind == "lm":
+            from repro_torch.models.transformer import cache_specs, init_cache
+
+            return init_cache(cfg, B, S, device="meta"), cache_specs(cfg)
+        if self.kind == "mamba_lm":
+            from repro_torch.models.ssm import init_mamba2_lm_state, mamba2_lm_state_specs
+
+            return init_mamba2_lm_state(cfg, B, device="meta"), mamba2_lm_state_specs(cfg)
+        if self.kind == "hybrid":
+            from repro_torch.models.hybrid import init_state, state_specs
+
+            return init_state(cfg, B, S, device="meta"), state_specs(cfg)
+        if self.kind == "encdec":
+            from repro_torch.models.encdec import cache_specs as ed_specs
+
+            L_, H, D = cfg.n_layers, cfg.n_heads, cfg.head_dim
+            kv = torch.empty((L_, B, S, H, D), dtype=cfg.dtype, device="meta")
+            shapes = {
+                "k": kv, "v": kv.clone(),
+                "pos": torch.empty((L_, S), dtype=torch.int32, device="meta"),
+                "len": torch.empty((L_,), dtype=torch.int32, device="meta"),
+                "xk": kv.clone(), "xv": kv.clone(),
+            }
+            return shapes, ed_specs(cfg)
+        raise ValueError(self.kind)
 
     # -- counts, from shapes alone -------------------------------------------
     def _meta_params(self, reduced):

@@ -1,22 +1,28 @@
-"""End-to-end training launcher, on one device.
+"""End-to-end training launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch <id> [--reduced] \
-        --steps 200 --batch 8 --seq 128 --ckpt-dir <dir> [--resume] --device cuda
+        --steps 200 --batch 8 --seq 128 --ckpt-dir <dir> [--resume] \
+        [--mesh none|prod|prod-multipod] --device cuda
 
-Port of ``src/repro/launch/train.py`` with ``--mesh none``: the same flags,
-prints and return value (the list of losses).  The loop wires together the
-substrate: the seeded data pipeline, the step of ``ArchSpec.make_train_step``
-(autograd with the reference's remat points, then Adam), atomic
-checkpoints, deterministic resume and straggler logging.  Weights come from
-seed 0 through the port's own init.  The step runs eagerly (the reference
-jits it).  ``--device`` picks where it runs (default ``cuda``; it raises
-when no GPU is present).  ``--mesh prod`` and ``prod-multipod`` are refused:
-the production mesh needs the sharding slice (``train/sharding.py``,
-``launch/mesh.py``).
+Port of ``src/repro/launch/train.py``: the same flags, prints and return
+value (the list of losses).  The loop wires together the substrate: the
+seeded data pipeline, the step of ``ArchSpec.make_train_step`` (autograd
+with the reference's remat points, then Adam), atomic checkpoints,
+deterministic resume and straggler logging.  Weights come from seed 0
+through the port's own init.  The step runs eagerly (the reference jits
+it).  ``--device`` picks where it runs (default ``cuda``; it raises when no
+GPU is present).  ``--mesh prod`` (16x16) and ``prod-multipod`` (2x16x16)
+lay the production mesh over the pool of ``--device`` (every card for
+``cuda``), shard the params and the Adam state by ``train/sharding.py``'s
+rules, print each mesh position's bytes, and run the loop under the mesh.
+On a pool of one device every leaf stays whole there, and the losses are
+``--mesh none``'s bit for bit; a pool of several distinct cards is refused
+(``train.sharding.SPMD_ITEM``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
@@ -26,9 +32,13 @@ from repro_torch.data.pipeline import (
     TokenPipelineConfig, audio_batch, to_device, token_batch, vlm_batch,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import device_pool, make_production_mesh
 from repro_torch.optim.adam import AdamConfig, init_adam
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import sharding as shd
 from repro_torch.train.fault import DataSkipper, StragglerDetector
+from repro_torch.tree import leaves
+
 
 def make_batch_fn(spec, cfg, batch, seq, device="cuda"):
     """``batch_id -> batch`` on ``device``: token batches, with stub image
@@ -53,6 +63,26 @@ def init_train_state(spec, reduced, device="cuda"):
     return params, init_adam(params)
 
 
+def place_on_mesh(mesh, params, opt_state, axes):
+    """Params and Adam state placed by their shardings (the moments by the
+    params'; the step replicated), and the ``[mesh]`` line: what one mesh
+    position holds, from the shard shapes, and what each device holds."""
+    pshard = shd.make_param_sharding(mesh, params, axes)
+    oshard = {"m": pshard, "v": pshard, "step": shd.NamedSharding(mesh, shd.P())}
+    params, opt_state = shd.device_put(params, pshard), shd.device_put(opt_state, oshard)
+    p_bytes, o_bytes = shd.shard_bytes(params, pshard), shd.shard_bytes(opt_state, oshard)
+    whole_p = sum(t.numel() * t.element_size() for t in leaves(params))
+    whole_o = sum(t.numel() * t.element_size() for t in leaves(opt_state))
+    dims = "x".join(str(n) for n in mesh.shape.values())
+    devs = mesh.distinct_devices
+    print(f"[mesh] {dims} {mesh.axis_names} over {len(devs)} distinct device(s) "
+          f"({', '.join(map(str, devs))}): each of the {mesh.size} positions holds "
+          f"{p_bytes} B of params and {o_bytes} B of Adam state (shard shapes); "
+          + "; ".join(f"{d} holds {whole_p} B of params and {whole_o} B of Adam state "
+                      "(whole)" for d in devs))
+    return params, opt_state
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -71,11 +101,6 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production mesh is not ported yet; ROADMAP.md §1 item 2 "
-            "(the sharding slice: train/sharding.py, launch/mesh.py)"
-        )
 
     spec = ARCHS[args.arch]
     cfg = spec.cfg(args.reduced)
@@ -83,7 +108,15 @@ def main(argv=None):
     adam_cfg = AdamConfig(lr=args.lr, total_steps=total,
                           warmup_steps=max(1, total // 20))
 
+    mesh = None
+    if args.mesh != "none":
+        mesh = make_production_mesh(multi_pod=args.mesh == "prod-multipod",
+                                    devices=device_pool(args.device))
+        shd.require_one_device(mesh, f"--mesh {args.mesh}")  # before the init
     params, opt_state = init_train_state(spec, args.reduced, args.device)
+    if mesh is not None:
+        axes = spec.init(None, reduced=args.reduced, device="meta")[1]
+        params, opt_state = place_on_mesh(mesh, params, opt_state, axes)
     step_fn = spec.make_train_step(adam_cfg, reduced=args.reduced)
     batch_fn = make_batch_fn(spec, cfg, args.batch, args.seq, args.device)
 
@@ -99,26 +132,27 @@ def main(argv=None):
 
     straggler = StragglerDetector()
     losses = []
-    for step in range(start_step, args.steps):
-        batch = batch_fn(skipper.next_batch_id())
-        t0 = time.time()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])
-        dt = time.time() - t0
-        losses.append(loss)
-        if straggler.observe(0, dt):
-            print(f"[fault] step {step}: local worker flagged as straggler ({dt:.2f}s)")
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(
-                f"step {step:5d} loss {loss:.4f} gnorm "
-                f"{float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e} {dt:.2f}s"
-            )
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(
-                args.ckpt_dir, step + 1, {"params": params, "opt": opt_state},
-                extra={"arch": args.arch, "loss": loss},
-            )
-            ckpt.prune(args.ckpt_dir, keep=3)
+    with shd.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for step in range(start_step, args.steps):
+            batch = batch_fn(skipper.next_batch_id())
+            t0 = time.time()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            losses.append(loss)
+            if straggler.observe(0, dt):
+                print(f"[fault] step {step}: local worker flagged as straggler ({dt:.2f}s)")
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(
+                    f"step {step:5d} loss {loss:.4f} gnorm "
+                    f"{float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e} {dt:.2f}s"
+                )
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(
+                    args.ckpt_dir, step + 1, {"params": params, "opt": opt_state},
+                    extra={"arch": args.arch, "loss": loss},
+                )
+                ckpt.prune(args.ckpt_dir, keep=3)
     print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
     return losses
 

@@ -3,13 +3,14 @@
 Port of ``src/repro/models/layers.py``: plain functions on nested dicts of
 tensors.  ``init_*`` returns a tree of ``(tensor, logical axes)`` pairs
 that :func:`split_tree` splits into ``(params, specs)``; the axes tree is
-the reference's, kept for the sharding slice.  Attention covers GQA, RoPE
+the reference's, which ``train/sharding.py`` resolves on a mesh.  Attention covers GQA, RoPE
 (per-layer base, partial dims), QKV bias, logit softcapping, sliding
 windows and MLA; sequences of 2,048 and more take a blockwise
 (online-softmax) path, as in the reference.
 
 The reference's ``repro.train.sharding.constrain`` calls are left out: on
-one card they are no-ops.  Two choices differ from the reference by
+one card they are no-ops (the port's ``train/sharding.py::constrain``
+returns its input there).  Two choices differ from the reference by
 design: a KV cache passed to :func:`attention` or :func:`mla_attention` is
 written in place and returned (the reference threads a new one), and the
 slot arithmetic stays on the device, so no layer reads the cache length

@@ -13,7 +13,9 @@ integers, and through the serving engine), every aggregation backend
 against the SCV chain, the decoder LM (prefill and decode, caches
 included) on the card against the same code on the CPU, and the
 launcher's decode step captured in a CUDA graph against the eager one
-(the SSM, the hybrid and a decoder LM, bit for bit).
+(the SSM, the hybrid and a decoder LM, bit for bit), ``compressed_psum``
+over four slots of the card against the CPU, and ``launch/train.py
+--mesh prod`` against ``--mesh none``.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -986,3 +988,39 @@ def test_train_step_on_card_equals_cpu(dev, arch):
             scale = w.abs().max().item()
             scale = max(1.0, scale) if j == 1 else scale
             assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale
+
+
+def test_compressed_psum_on_card_equals_cpu(dev):
+    """``compressed_psum`` over four slots of the card against the same
+    call on the CPU, bit for bit (mean and every member's residual), and
+    the members' int8 sum made on the first slot's card."""
+    from repro_torch.optim.compress import compressed_psum
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(513, 65), (1000,), (3, 7, 11)]
+    grads = [{f"w{i}": torch.randn(s, generator=gen) for i, s in enumerate(shapes)}
+             for _ in range(4)]
+    errors = [{k: 0.01 * torch.randn(v.shape, generator=gen) for k, v in g.items()}
+              for g in grads]
+    want_mean, want_err = compressed_psum(grads, errors, "pod")
+    on = lambda tree: {k: v.to(dev) for k, v in tree.items()}  # noqa: E731
+    mean, err = compressed_psum([on(g) for g in grads], [on(e) for e in errors], "pod")
+    for k in want_mean:
+        assert mean[k].device.type == "cuda" and torch.equal(mean[k].cpu(), want_mean[k])
+        for i in range(4):
+            assert torch.equal(err[i][k].cpu(), want_err[i][k])
+
+
+def test_production_mesh_on_card_equals_no_mesh(dev, capsys):
+    """``launch/train.py --mesh prod`` on the card gives ``--mesh none``'s
+    losses bit for bit, on a reduced arch (the pool is every card: run on
+    a machine with one)."""
+    from repro_torch.launch import train as train_mod
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("a pool of several distinct cards is refused (ROADMAP.md §1 item 6)")
+    args = ["--arch", "mamba2-780m", "--reduced", "--steps", "3", "--batch", "2", "--seq",
+            "16", "--device", "cuda"]
+    assert train_mod.main(args + ["--mesh", "prod"]) == train_mod.main(args)
+    assert "[mesh] 16x16 ('data', 'model') over 1 distinct device(s) (cuda:0)" in \
+        capsys.readouterr().out

@@ -61,7 +61,9 @@ def test_port_has_modules():
             "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.whisper_small",
             "repro_torch.optim.adam", "repro_torch.data.pipeline",
             "repro_torch.train.checkpoint", "repro_torch.train.fault",
-            "repro_torch.launch.train", "repro_torch.tree"} <= names
+            "repro_torch.launch.train", "repro_torch.tree", "repro_torch.train.sharding",
+            "repro_torch.launch.mesh", "repro_torch.optim.compress",
+            "repro_torch.launch.hlocost", "repro_torch.launch.dryrun"} <= names
 
 
 @pytest.mark.parametrize("path", [*_port_files(), os.path.join(REPO, "chip_smoke.py")],

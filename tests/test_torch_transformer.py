@@ -249,8 +249,8 @@ def test_unported_kinds_and_training_raise():
     """Every kind inits on ``meta`` (the SSM, hybrid and encoder-decoder
     ones since they were ported) and makes a train step (since the
     training stack was ported); an unknown kind is refused, its train step
-    too; what still raises is the production mesh, naming the sharding
-    slice."""
+    too; the production mesh runs on a one-device pool and is refused over
+    several distinct devices, naming the ROADMAP item it waits for."""
     from repro_torch.configs.common import ArchSpec
     from repro_torch.launch import train as train_mod
 
@@ -264,9 +264,15 @@ def test_unported_kinds_and_training_raise():
     with pytest.raises(ValueError):
         bad.make_train_step()
     assert isinstance(bad, ArchSpec)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        train_mod.main(["--arch", "olmoe-1b-7b", "--reduced", "--mesh", "prod",
-                        "--device", "cpu"])
+    args = ["--arch", "olmoe-1b-7b", "--reduced", "--steps", "1", "--batch", "2", "--seq",
+            "8", "--mesh", "prod", "--device", "cpu"]
+    assert len(train_mod.main(args)) == 1
+    import unittest.mock
+
+    with unittest.mock.patch.object(train_mod, "device_pool",
+                                    lambda d: (torch.device("cpu"), torch.device("meta"))), \
+            pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+        train_mod.main(args)
 
 
 def test_init_defaults_to_the_card():
