@@ -211,7 +211,12 @@ Phases, each of which fails the run on error:
     S = 512), 2 steps with ``--mesh prod`` (the 16x16 mesh laid over the
     card) and 2 with ``--mesh none``: the losses equal bit for bit; the
     ``[mesh]`` line gives each of the 256 positions' bytes of params and
-    Adam state.  (b) ``compressed_psum`` over four slots of the card on
+    Adam state, from the shard shapes and as held.  Then B = 16, S = 128,
+    16 data groups of one sequence: ``--mesh prod`` bit for bit against
+    ``--mesh none`` with 16 microbatches, plain ``--mesh none``'s gap, step
+    ms and memory printed; and the reduced ``olmoe-1b-7b`` in 16 groups
+    (each aux with the whole batch's expert shares), one step, card against
+    CPU.  (b) ``compressed_psum`` over four slots of the card on
     gradient and error trees of Mamba2-780M's full shapes from a seeded
     generator: the mean and every member's residual equal the same call on
     the CPU bit for bit on a seeded sample of leaves; one call timed (CUDA
@@ -447,38 +452,195 @@ def train_drive(dev, card: str) -> dict:
     return dict(worst=worst, full=full, restart=restart, seconds=seconds)
 
 
-def mesh_train(args, dev, card: str) -> dict:
-    """18(a): ``args`` (``MESH_ARGS``: ``TRAIN_ARCH`` at full width and
-    depth, float32, phase 17(b)'s cell, 2 steps) through
-    ``launch/train.py``'s ``main`` on ``dev`` with ``--mesh prod``, then
-    with ``--mesh none``: the losses equal bit for bit, and the ``[mesh]``
-    line (each of the 256 positions' bytes of params and Adam state)
-    printed."""
+def timed_main(args, microbatch=None) -> tuple:
+    """``launch/train.py``'s ``main(args)`` with stdout captured: ``(losses,
+    grad norms, log, ms of each step on the host clock between
+    synchronizations, max_memory_allocated)``.  The step function is
+    wrapped for the timing; with ``microbatch`` it is made with that many
+    microbatches."""
     import contextlib
     import io
 
+    from repro_torch.configs.common import ArchSpec
     from repro_torch.launch import train as train_mod
 
-    args = list(args) + ["--device", str(dev)]
-    runs, seconds = {}, {}
-    for mesh in ("prod", "none"):
-        with contextlib.redirect_stdout(io.StringIO()) as log:
-            t0 = time.perf_counter()
-            runs[mesh] = train_mod.main(args + ["--mesh", mesh])
+    ms, gnorms = [], []
+    make = ArchSpec.make_train_step
+
+    def timed(self, *a, **kw):
+        if microbatch is not None:
+            kw["microbatch"] = microbatch
+        step = make(self, *a, **kw)
+
+        def run(*xs):
             torch.cuda.synchronize()
-            seconds[mesh] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        if mesh == "prod":
-            lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("[mesh]")]
-    check(len(lines) == 1 and "16x16 ('data', 'model') over 1 distinct device(s)" in lines[0]
-          and "each of the 256 positions" in lines[0], f"18(a): mesh line {lines}")
-    check(runs["prod"] == runs["none"] and all(np.isfinite(runs["none"])),
-          f"18(a): --mesh prod losses {runs['prod']} against --mesh none {runs['none']}")
-    print(lines[0] + f" [{card}]")
-    print(f"[mesh] 18(a) launch/train.py main {' '.join(args)}, float32: losses "
-          f"--mesh prod {runs['prod']} == --mesh none {runs['none']} (bit for bit); "
-          f"{seconds['prod']:.1f} s and {seconds['none']:.1f} s (host clock, init included)")
-    return dict(losses=runs["none"], seconds=seconds)
+            t0 = time.perf_counter()
+            out = step(*xs)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            gnorms.append(float(out[2]["grad_norm"]))
+            return out
+
+        return run
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ArchSpec.make_train_step = timed
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            losses = train_mod.main(args)
+    finally:
+        ArchSpec.make_train_step = make
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return losses, gnorms, log.getvalue(), ms, peak
+
+
+def mesh_line(log: str, n_positions: int) -> str:
+    """The run's ``[mesh]`` line, checked: every one of the
+    ``n_positions`` positions holds (``held_bytes``) the bytes its shard
+    shapes count."""
+    lines = [ln for ln in log.splitlines() if ln.startswith("[mesh]")]
+    check(len(lines) == 1, f"18(a): mesh lines {lines}")
+    shapes = lines[0].split("positions holds ")[1].split(" (shard shapes)")[0]
+    check(f"each of the {n_positions} positions" in lines[0]
+          and f"held_bytes: {n_positions} position(s) {shapes}" in lines[0],
+          f"18(a): held bytes differ from the shard shapes: {lines[0]}")
+    return lines[0]
+
+
+def mesh_moe(dev, card: str) -> float:
+    """18(a)'s MoE case: ``MESH_MOE_ARCH`` reduced on the 16x16 mesh over
+    the card, ``MESH_MOE_BATCH`` sequences (16 data groups of one), one
+    step, and the same on a 16x16 mesh over the CPU from the same weights
+    and batch.  Every group's aux loss takes the whole batch's expert
+    shares, in remat's recompute too, which on the card runs on autograd's
+    device thread.  The loss, ``grad_norm`` and every leaf of the new
+    params, ``m`` and ``v`` within ``TRAIN_TOL`` of the largest magnitude
+    (params: of max(1, it)); a group's own shares move ``m`` by 0.4-0.9%
+    of it.  Returns the largest error over that scale."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import device_pool, make_production_mesh
+    from repro_torch.launch.train import make_batch_fn, place_on_mesh
+    from repro_torch.optim.adam import AdamConfig, init_adam
+    from repro_torch.train import sharding as shd
+    from repro_torch.tree import leaves, tree_map
+
+    cpu = torch.device("cpu")
+    spec = ARCHS[MESH_MOE_ARCH]
+    params, axes = spec.init(torch.Generator().manual_seed(0), reduced=True, device=cpu)
+    batch = make_batch_fn(spec, spec.cfg(reduced=True), MESH_MOE_BATCH, TRAIN_SMALL_SEQ,
+                          cpu)(0)
+    step = spec.make_train_step(AdamConfig(**TRAIN_SMALL_ADAM), reduced=True)
+
+    def run(d):
+        p = tree_map(lambda t: t.to(d), params)
+        mesh = make_production_mesh(devices=device_pool(d))
+        with contextlib.redirect_stdout(io.StringIO()):
+            p, st = place_on_mesh(mesh, p, init_adam(p), axes)
+        check(shd.batch_groups(mesh, MESH_MOE_BATCH)[1] == 16, "18(a) MoE: not 16 groups")
+        p, st, m = step(p, st, {k: v.to(d) for k, v in batch.items()})
+        out = {"loss": m["loss"].reshape(1), "grad_norm": m["grad_norm"].reshape(1)}
+        for what, tree in (("params", p), ("m", st["m"]), ("v", st["v"])):
+            out.update((f"{what} {i}", shd.gather(x, cpu)) for i, x in enumerate(leaves(tree)))
+        return out
+
+    want, got = run(cpu), run(dev)
+    worst = 0.0
+    for what, w in want.items():
+        e, scale = rel_err(got[what].cpu(), w)
+        scale = max(1.0, scale) if what.startswith("params") else max(scale, 1e-30)
+        check(e <= TRAIN_TOL * scale, f"18(a) MoE {what}: card off the CPU by {e} "
+              f"(max |CPU| {scale})")
+        worst = max(worst, e / scale)
+    print(f"[mesh] 18(a) {MESH_MOE_ARCH} reduced, 16 groups (batch {MESH_MOE_BATCH}, seq "
+          f"{TRAIN_SMALL_SEQ}), one step on the 16x16 mesh over the card against the CPU: "
+          f"loss {float(want['loss'])}, grad_norm {float(want['grad_norm'])}; loss, grad_norm "
+          f"and {len(want) - 2} param/m/v leaves within {worst:.2e} of the largest magnitude "
+          f"(limit {TRAIN_TOL}) [{card}]")
+    return worst
+
+
+def mesh_train(args, dev, card: str) -> dict:
+    """18(a): ``args`` (``MESH_ARGS``: ``TRAIN_ARCH`` at full width and
+    depth, float32, phase 17(b)'s cell, 2 steps) through
+    ``launch/train.py``'s ``main`` on ``dev`` with ``--mesh prod`` (every
+    position holding its own shards on the card), then with ``--mesh
+    none``: one data group, so the losses equal bit for bit.  Then
+    ``MESH_GROUPS_ARGS`` (16 data groups of one sequence) with ``--mesh
+    prod``, held bit for bit (losses and ``grad_norm`` of both steps)
+    against ``--mesh none`` made with 16 microbatches: the same
+    one-sequence passes summed in the same float32 order; plain ``--mesh
+    none`` at that cell gives the step ms and memory to compare and the
+    gap of one pass over 16 sequences, printed.  Each run's step ms (host
+    clock between synchronizations) and ``max_memory_allocated``, and the
+    ``[mesh]`` line (each position's bytes from the shard shapes and as
+    held, each device's sum), are printed.  Then :func:`mesh_moe`.  Over
+    several cards the 16-group run is made once more over all of them,
+    held bit for bit to the same witness."""
+    args = list(args) + ["--device", str(dev)]
+    cells = {"one group": (args, {"none": None}),
+             "16 groups": (list(MESH_GROUPS_ARGS) + ["--device", str(dev)],
+                           {"none": None, "16 microbatches": 16})}
+    out = {}
+    for name, (cell_args, against) in cells.items():
+        runs = {}
+        for run, micro in [("prod", None)] + list(against.items()):
+            t0 = time.perf_counter()
+            losses, gnorms, log, ms, peak = timed_main(
+                cell_args + ["--mesh", "prod" if run == "prod" else "none"], micro)
+            runs[run] = dict(losses=losses, gnorms=gnorms, ms=ms, peak=peak,
+                             seconds=time.perf_counter() - t0)
+            if run == "prod":
+                line = mesh_line(log, 256)
+        prod, none = runs["prod"], runs["none"]
+        check(all(np.isfinite(none["losses"])) and len(prod["losses"]) == len(none["losses"]) == 2,
+              f"18(a) {name}: {runs}")
+        witness = runs["none" if name == "one group" else "16 microbatches"]
+        check(prod["losses"] == witness["losses"] and prod["gnorms"] == witness["gnorms"],
+              f"18(a) {name}: --mesh prod losses {prod['losses']}, grad_norm {prod['gnorms']} "
+              f"against {witness['losses']}, {witness['gnorms']}")
+        if name == "one group":
+            verdict = "losses and grad_norm bit for bit"
+        else:
+            rel = [abs(a - b) / abs(b) for a, b in zip(prod["losses"], none["losses"])]
+            w = runs["16 microbatches"]
+            verdict = (f"bit for bit against --mesh none with 16 microbatches (losses and "
+                       f"grad_norm {prod['gnorms']}; its step ms "
+                       f"{[round(x, 1) for x in w['ms']]}, max_memory_allocated "
+                       f"{w['peak'] / 1e9:.2f} GB); relative gaps to plain --mesh none, one "
+                       f"pass over 16 sequences, {rel[0]:.3e}, {rel[1]:.3e} (printed, not held)")
+        print(line + f" [{card}]")
+        print(f"[mesh] 18(a) {name}: launch/train.py main {' '.join(cell_args)}, float32: losses "
+              f"--mesh prod {prod['losses']} against --mesh none {none['losses']}: {verdict}; "
+              f"step ms --mesh prod {[round(x, 1) for x in prod['ms']]} against --mesh none "
+              f"{[round(x, 1) for x in none['ms']]} (host clock between synchronizations); "
+              f"max_memory_allocated {prod['peak'] / 1e9:.2f} GB against "
+              f"{none['peak'] / 1e9:.2f} GB; {prod['seconds']:.1f} s and "
+              f"{none['seconds']:.1f} s a run (init included) [{card}]")
+        out[name] = runs
+    out["moe"] = mesh_moe(dev, card)
+    n = torch.cuda.device_count()
+    if n > 1:
+        cards = list(MESH_GROUPS_ARGS) + ["--device", "cuda"]
+        losses, gnorms, log, ms, peak = timed_main(cards + ["--mesh", "prod"])
+        line = mesh_line(log, 256)
+        witness = out["16 groups"]["16 microbatches"]
+        check(f"over {n} distinct device(s)" in line and losses == witness["losses"]
+              and gnorms == witness["gnorms"],
+              f"18(a) over {n} cards: {line}, losses {losses}, grad_norm {gnorms} against "
+              f"{witness['losses']}, {witness['gnorms']}")
+        print(line + f" [{card}]")
+        print(f"[mesh] 18(a) 16 groups over {n} cards: losses {losses} and grad_norm {gnorms} "
+              f"bit for bit against --mesh none with 16 microbatches; step ms "
+              f"{[round(x, 1) for x in ms]} [{card}]")
+        out["cards"] = dict(losses=losses, ms=ms, peak=peak)
+    else:
+        print("[mesh] 18(a) over several cards: not run (one card in this machine)")
+    return out
 
 
 def psum_drive(spec, dev, card: str) -> dict:
@@ -706,6 +868,11 @@ RESTART_ARGS = ["--arch", "qwen1.5-32b", "--reduced", "--batch", "2", "--seq", "
 # phase 18: (a) --mesh prod against --mesh none on phase 17(b)'s cell
 MESH_ARGS = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
              str(TRAIN_SEQ)]
+# the same tokens a step as 16 data groups of one sequence on the 16x16 mesh,
+# held bit for bit against --mesh none with 16 microbatches
+MESH_GROUPS_ARGS = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", "16", "--seq", "128"]
+# an MoE arch (sorted dispatch, aux loss) reduced, 16 groups, card against CPU
+MESH_MOE_ARCH, MESH_MOE_BATCH = "olmoe-1b-7b", 16
 # (b) compressed_psum over four slots of the card; leaves held against the
 # CPU: a seeded sample of those up to 100M entries (the CPU call takes seconds)
 PSUM_SLOTS, PSUM_STEPS, PSUM_CPU_LEAVES, PSUM_CPU_MAX = 4, 30, 3, 100_000_000

@@ -6,7 +6,8 @@ exports ``spec: ArchSpec``, which binds a model family (``lm``,
 same-family config for small runs, and the input shapes that apply.
 Every family inits, computes its loss, trains (``make_train_step``: one
 eager step of autograd and Adam, with gradient accumulation over
-microbatches) and makes its prefill and decode steps.  Abstract trees
+microbatches, run SPMD over a mesh when the params are placed on one) and
+makes its prefill and decode steps.  Abstract trees
 (``make_abstract``, ``abstract_opt_state``, ``bf16_params``) are tensors on
 the ``meta`` device, and so are ``input_specs`` (a shape's batch) and
 ``state_specs`` (the decode-time state and its logical axes), which the
@@ -14,6 +15,7 @@ dry run (``launch/dryrun.py``) shards and counts.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 from typing import Any, Callable
@@ -21,7 +23,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.optim.adam import AdamConfig, adam_update
+from repro_torch.models import layers as L
+from repro_torch.optim.adam import AdamConfig, adam_update, global_norm
+from repro_torch.train import sharding as shd
 from repro_torch.tree import leaves, tree_map, unflatten
 
 #: Each family's module under ``repro_torch.models`` and its init, loss
@@ -95,11 +99,16 @@ class ArchSpec:
         loss ``l / k`` accumulate in float32, in the reference's order.
         The step runs eagerly on the params' device.
 
-        ``gather_params_once`` is accepted and does nothing: on one card no
-        parameter is sharded, so there is nothing to gather once."""
+        When the params and the Adam state are placed on a mesh
+        (``train.sharding.Sharded`` leaves), the step runs SPMD over it
+        (:func:`spmd_step`); ``gather_params_once`` then gathers the
+        params whole once a step, before the microbatches (as the
+        reference hoists its ``unfsdp_params`` before its scan), not once
+        a microbatch."""
         adam_cfg = adam_cfg or AdamConfig()
         loss_fn = self.loss_fn(reduced)
         k = microbatch if microbatch is not None else (1 if reduced else self.train_microbatch)
+        moe = getattr(self.cfg(reduced), "moe", None) is not None
 
         def value_and_grad(params, batch):
             flat = [t.detach().requires_grad_(True) for t in leaves(params)]
@@ -110,6 +119,9 @@ class ArchSpec:
             return loss.detach(), unflatten(params, grads)
 
         def train_step(params, opt_state, batch):
+            if isinstance(leaves(params)[0], shd.Sharded):
+                return spmd_step(adam_cfg, value_and_grad, loss_fn if moe else None, k,
+                                 bool(gather_params_once), params, opt_state, batch)
             if k == 1:
                 loss, grads = value_and_grad(params, batch)
             else:
@@ -252,6 +264,126 @@ class ArchSpec:
                 n = n * moe.top_k // moe.n_experts
             total += n
         return total
+
+
+# -- the SPMD step over a mesh --------------------------------------------------
+def _global_shares(loss_fn, whole, slices, devs) -> dict:
+    """Device -> (layer key -> expert shares of the whole microbatch): each
+    data group's slot counts from a forward without gradients
+    (``layers.expert_shares``), summed over the groups."""
+    records = []
+    with torch.no_grad():
+        for gb, d in zip(slices, devs):
+            rec = []
+            with L.expert_shares(record=rec):
+                loss_fn(whole[d], gb)
+            records.append(rec)
+    if not records[0]:  # no sorted dispatch: the groups keep their own shares
+        return {}
+    home = devs[0]
+    slots = sum(r[0][2] for r in records)
+    shares = [sum(r[i][1].to(home) for r in records) / slots for i in range(len(records[0]))]
+    tables = {}
+    for rec, d in zip(records, devs):
+        tables.setdefault(d, {key: s.to(d) for (key, _, _), s in zip(rec, shares)})
+    return tables
+
+
+def spmd_step(adam_cfg, value_and_grad, moe_loss_fn, k, once, params, opt_state, batch):
+    """One train step SPMD over the mesh the params are placed on.
+
+    Each of the ``k`` microbatches is split over the data groups, the mesh
+    axes the reference keeps for its batch dim (``sharding.batch_groups``);
+    group ``g`` runs on ``sharding.group_devices``' device for it, with the
+    params gathered whole there (one copy a device, shared by its groups,
+    gathered at each microbatch, or once a step with ``once``).  Each
+    group's gradients are added into one float32 whole-gradient buffer per
+    leaf on the mesh's first device, group by group within a microbatch
+    and microbatch by microbatch, each scaled by ``1 / (k G)`` (the
+    reference's ``g / k`` of the groups' mean): the order and the scale of
+    the unplaced step with ``k G`` microbatches.  The global norm is taken once from that buffer, which is then
+    reduce-scattered to every position's block, where ``adam_update`` runs
+    on the position's shards of the params and the moments.  With one
+    group and one microbatch the gradients go to the update as they come,
+    as off the mesh.  ``moe_loss_fn``, the loss of an arch with sorted MoE
+    dispatch, gives every group the whole microbatch's expert shares in its
+    aux loss (:func:`_global_shares`).  Over several cards the buffer and
+    every gather go through the mesh's first device, a parameter server,
+    not a per-device reduce-scatter.  Returns placed params and state, and
+    the whole batch's ``loss``, ``grad_norm`` and ``lr``."""
+    flat = leaves(params)
+    mesh = flat[0].sharding.mesh
+    b = next(iter(batch.values())).shape[0] // k
+    kept, G = shd.batch_groups(mesh, b)
+    devs = shd.group_devices(mesh.devices, mesh.axis_names, kept)
+    home = mesh.devices.flat[0]
+    n, per = k * G, b // G
+
+    def gather_whole():
+        return {d: tree_map(lambda x, d=d: shd.gather(x, d), params) for d in dict.fromkeys(devs)}
+
+    kept_whole = gather_whole() if once else None
+    loss = grads = None
+    for i in range(k):
+        mb = batch if k == 1 else {name: x.reshape((k, b) + tuple(x.shape[1:]))[i]
+                                   for name, x in batch.items()}
+        whole = kept_whole if once else gather_whole()
+        slices = [mb] if G == 1 else [
+            {name: x[g * per:(g + 1) * per].to(devs[g]) for name, x in mb.items()}
+            for g in range(G)]
+        tables = _global_shares(moe_loss_fn, whole, slices, devs) \
+            if moe_loss_fn is not None and G > 1 else {}
+        for g in range(G):
+            with L.expert_shares(table=tables[devs[g]]) if tables else contextlib.nullcontext():
+                l, gr = value_and_grad(whole[devs[g]], slices[g])
+            if n == 1:
+                loss, grads = l, leaves(gr)
+                continue
+            if grads is None:
+                loss = torch.zeros((), dtype=torch.float32, device=home)
+                grads = [torch.zeros(p.shape, dtype=torch.float32, device=home) for p in flat]
+            for a, gg in zip(grads, leaves(gr)):
+                a.add_(gg.to(device=home, dtype=torch.float32) / n)
+            loss = loss + l.to(home) / n
+            del gr
+        del whole
+    del kept_whole
+    gnorm = global_norm(grads)
+    scattered = [shd.reduce_scatter(g, p.sharding) for g, p in zip(grads, flat)]
+    del grads
+
+    keys = [key for key in ("m", "v", "master") if key in opt_state]
+    state = {key: leaves(opt_state[key]) for key in keys}
+    out = {key: [np.empty(mesh.devices.shape, dtype=object) for _ in flat]
+           for key in ["params"] + keys}
+    step = np.empty(mesh.devices.shape, dtype=object)
+    norms, lr = {}, None
+
+    def at(xs, pos):
+        return unflatten(params, [x.shards[pos] for x in xs])
+
+    for pos in shd.positions(mesh):
+        dev = mesh.devices[pos]
+        if dev not in norms:
+            norms[dev] = gnorm.to(dev)
+        st = {key: at(state[key], pos) for key in keys}
+        st["step"] = opt_state["step"].shards[pos]
+        new_p, new_st, metrics = adam_update(adam_cfg, at(flat, pos), at(scattered, pos), st,
+                                             gnorm=norms[dev])
+        lr = metrics["lr"] if lr is None else lr
+        for key, tree in [("params", new_p)] + [(key, new_st[key]) for key in keys]:
+            for j, t in enumerate(leaves(tree)):
+                out[key][j][pos] = t
+        step[pos] = new_st["step"]
+
+    def placed(like, key):
+        return unflatten(params, [shd.Sharded(x.shape, x.dtype, x.sharding, s)
+                                  for x, s in zip(like, out[key])])
+
+    new_state = {key: placed(state[key], key) for key in keys}
+    old_step = opt_state["step"]
+    new_state["step"] = shd.Sharded(old_step.shape, old_step.dtype, old_step.sharding, step)
+    return placed(flat, "params"), new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
 
 # -- abstract trees, on the meta device ---------------------------------------

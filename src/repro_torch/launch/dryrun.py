@@ -29,13 +29,20 @@ run in Python, so no trip count hides.  :func:`dryrun_cell` instead
   (:func:`run_cell`): ``max_memory_allocated`` and the step's ms by CUDA
   events.
 
+A train cell's ``collective_bytes_per_device`` and ``collective_counts``
+are those of the port's SPMD step (``configs/common.py::spmd_step``),
+counted from the shard shapes without running it (:func:`spmd_collectives`):
+its param gathers and its gradient reduce-scatter.  The reference's
+compiled step also moves the activations of its tensor-parallel products,
+which the port's step does not split.
+
 Keys the port cannot know are ``null``, never 0: ``lower_s`` and
 ``compile_s`` (nothing is lowered or compiled), ``flops_per_device`` (a
 count per device needs each op's operands' shardings, which an eager run on
 one device does not have), ``bytes_per_device`` and
-``xla_*_uncorrected`` (the compiled HLO's traffic and cost model),
-``collective_bytes_per_device`` and ``collective_counts`` (the partitioner
-inserts the collectives), ``memory["temp_bytes"]`` and
+``xla_*_uncorrected`` (the compiled HLO's traffic and cost model), the
+collectives of a prefill or decode cell (the port runs those steps on one
+device, with no collective), ``memory["temp_bytes"]`` and
 ``memory["alias_bytes"]`` (the compiler's buffer assignment and donation),
 and ``memory["output_bytes"]`` of a prefill cell (its output shardings are
 the compiler's choice).
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import time
 import weakref
@@ -194,6 +202,33 @@ def cell_shardings(mesh, cell) -> dict:
     return out
 
 
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def spmd_collectives(params, pshard, microbatch: int, once: bool = False) -> tuple:
+    """``(bytes, counts)`` a mesh position's collectives move in one SPMD
+    train step, by kind, counted as the reference counts HLO collectives
+    (each op's output bytes): every microbatch gathers each split param
+    leaf whole (all-gather), or once a step with ``once``
+    (``gather_params_once``); each leaf's float32 gradient is
+    reduce-scattered to its shard once a step (an all-reduce of the whole
+    for a leaf held whole everywhere).  From shapes alone: ``params`` may
+    be on ``meta``."""
+    nbytes, counts = dict.fromkeys(COLLECTIVES, 0), dict.fromkeys(COLLECTIVES, 0)
+
+    def add(kind, shape, itemsize, times=1):
+        nbytes[kind] += times * itemsize * math.prod(shape)
+        counts[kind] += times
+
+    for x, sh in zip(leaves(params), leaves(pshard)):
+        whole, block = tuple(x.shape), sh.shard_shape(x.shape)
+        if block != whole:
+            add("all-gather", whole, x.element_size(), 1 if once else microbatch)
+        add("reduce-scatter" if block != whole else "all-reduce", block, 4)
+    return nbytes, counts
+
+
 def count_step(spec, shape_name, reduced=False) -> dict:
     """One step run on ``meta``: its FLOPs (``FlopCounterMode``), the peak
     bytes it holds (:class:`LiveBytes`), its arguments' and outputs' whole
@@ -289,6 +324,10 @@ def dryrun_cell(arch_name: str, shape_name: str, multi_pod: bool = False,
     elif kind == "decode":
         out_shardings = (_batch_shardings(mesh, out[0]), shardings["state"])
     out_bytes = shd.shard_bytes(out, out_shardings) if kind != "prefill" else None
+    coll_bytes = coll_counts = None
+    if kind == "train":
+        coll_bytes, coll_counts = spmd_collectives(cell["params"], shardings["params"],
+                                                   spec.train_microbatch)
     whole = {"argument_bytes": counted["argument_bytes"],
              "output_bytes": counted["output_bytes"], "peak_bytes": counted["peak_bytes"]}
     result = {
@@ -304,8 +343,8 @@ def dryrun_cell(arch_name: str, shape_name: str, multi_pod: bool = False,
         "bytes_per_device": None,
         "xla_flops_per_device_uncorrected": None,
         "xla_bytes_per_device_uncorrected": None,
-        "collective_bytes_per_device": None,
-        "collective_counts": None,
+        "collective_bytes_per_device": coll_bytes,
+        "collective_counts": coll_counts,
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,

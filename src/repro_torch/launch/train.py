@@ -13,15 +13,17 @@ through the port's own init.  The step runs eagerly (the reference jits
 it).  ``--device`` picks where it runs (default ``cuda``; it raises when no
 GPU is present).  ``--mesh prod`` (16x16) and ``prod-multipod`` (2x16x16)
 lay the production mesh over the pool of ``--device`` (every card for
-``cuda``), shard the params and the Adam state by ``train/sharding.py``'s
-rules, print each mesh position's bytes, and run the loop under the mesh.
-On a pool of one device every leaf stays whole there, and the losses are
-``--mesh none``'s bit for bit; a pool of several distinct cards is refused
-(``train.sharding.SPMD_ITEM``).
+``cuda``), place the params and the Adam state by ``train/sharding.py``'s
+rules (each mesh position holds its own shards, on its device), print each
+position's bytes, and run the loop under the mesh: the step runs SPMD over
+it (``configs/common.py::spmd_step``).  A batch that splits into one data
+group gives ``--mesh none``'s losses bit for bit.  Checkpoints hold the
+whole leaves; ``--resume`` places what it restores by the same shardings.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import time
 
@@ -66,20 +68,26 @@ def init_train_state(spec, reduced, device="cuda"):
 def place_on_mesh(mesh, params, opt_state, axes):
     """Params and Adam state placed by their shardings (the moments by the
     params'; the step replicated), and the ``[mesh]`` line: what one mesh
-    position holds, from the shard shapes, and what each device holds."""
+    position holds, from the shard shapes and as its tensors' storage
+    (``held_bytes``), and what each distinct device holds in all."""
     pshard = shd.make_param_sharding(mesh, params, axes)
     oshard = {"m": pshard, "v": pshard, "step": shd.NamedSharding(mesh, shd.P())}
     params, opt_state = shd.device_put(params, pshard), shd.device_put(opt_state, oshard)
     p_bytes, o_bytes = shd.shard_bytes(params, pshard), shd.shard_bytes(opt_state, oshard)
-    whole_p = sum(t.numel() * t.element_size() for t in leaves(params))
-    whole_o = sum(t.numel() * t.element_size() for t in leaves(opt_state))
+    held = collections.Counter()
+    per_device = collections.Counter()
+    for pos in shd.positions(mesh):
+        hp, ho = shd.held_bytes(params, pos), shd.held_bytes(opt_state, pos)
+        held[(hp, ho)] += 1
+        per_device[mesh.devices[pos]] += hp + ho
     dims = "x".join(str(n) for n in mesh.shape.values())
     devs = mesh.distinct_devices
     print(f"[mesh] {dims} {mesh.axis_names} over {len(devs)} distinct device(s) "
           f"({', '.join(map(str, devs))}): each of the {mesh.size} positions holds "
-          f"{p_bytes} B of params and {o_bytes} B of Adam state (shard shapes); "
-          + "; ".join(f"{d} holds {whole_p} B of params and {whole_o} B of Adam state "
-                      "(whole)" for d in devs))
+          f"{p_bytes} B of params and {o_bytes} B of Adam state (shard shapes); held_bytes: "
+          + "; ".join(f"{n} position(s) {hp} B of params and {ho} B of Adam state"
+                      for (hp, ho), n in sorted(held.items()))
+          + "; " + "; ".join(f"{d} holds {per_device[d]} B in all" for d in devs))
     return params, opt_state
 
 
@@ -112,7 +120,6 @@ def main(argv=None):
     if args.mesh != "none":
         mesh = make_production_mesh(multi_pod=args.mesh == "prod-multipod",
                                     devices=device_pool(args.device))
-        shd.require_one_device(mesh, f"--mesh {args.mesh}")  # before the init
     params, opt_state = init_train_state(spec, args.reduced, args.device)
     if mesh is not None:
         axes = spec.init(None, reduced=args.reduced, device="meta")[1]
@@ -126,6 +133,9 @@ def main(argv=None):
         hit = ckpt.restore_latest(args.ckpt_dir, {"params": params, "opt": opt_state})
         if hit is not None:
             start_step, tree, extra = hit
+            if mesh is not None:  # restored whole: placed as before
+                tree = shd.device_put(tree, shd.sharding_tree({"params": params,
+                                                               "opt": opt_state}))
             params, opt_state = tree["params"], tree["opt"]
             skipper.skip_to(start_step)
             print(f"resumed from step {start_step}")

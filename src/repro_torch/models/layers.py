@@ -8,9 +8,10 @@ the reference's, which ``train/sharding.py`` resolves on a mesh.  Attention cove
 windows and MLA; sequences of 2,048 and more take a blockwise
 (online-softmax) path, as in the reference.
 
-The reference's ``repro.train.sharding.constrain`` calls are left out: on
-one card they are no-ops (the port's ``train/sharding.py::constrain``
-returns its input there).  Two choices differ from the reference by
+The reference's ``repro.train.sharding.constrain`` calls are left out: a
+data group of the SPMD train step computes with whole weights and
+activations on its device (the port's ``train/sharding.py::constrain``
+checks its spec and returns its input).  Two choices differ from the reference by
 design: a KV cache passed to :func:`attention` or :func:`mla_attention` is
 written in place and returned (the reference threads a new one), and the
 slot arithmetic stays on the device, so no layer reads the cache length
@@ -22,6 +23,7 @@ activations are recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -587,6 +589,43 @@ def init_moe(key: ParamInit, cfg: MoEConfig):
     return p
 
 
+#: ``(record, table)`` while :func:`expert_shares` is active.  A module
+#: variable, not a thread-local: for CUDA tensors the backward, and remat's
+#: recompute in it, runs on autograd's device thread, which must see it too.
+_SHARES: tuple | None = None
+
+
+@contextlib.contextmanager
+def expert_shares(record: list | None = None, table: dict | None = None):
+    """Where :func:`moe_sorted`'s aux loss takes its expert shares (each
+    expert's fraction of the routed slots) from.  With ``record``, each
+    call appends ``(key, counts, n_slots)`` of its own batch; with
+    ``table`` (key -> shares), each call takes its shares from the table.
+    The SPMD train step records every data group's counts in a forward
+    without gradients and gives each group the shares of the whole batch,
+    so that the mean of the groups' aux losses is the whole batch's, as in
+    the reference.  A layer's key is its router's storage address: the
+    same in the recording forward, in the one that records gradients and
+    in remat's recompute, which all read one gathered copy of the params.
+    The backward must run inside the context, as ``value_and_grad`` runs
+    it."""
+    global _SHARES
+    prev, _SHARES = _SHARES, (record, table)
+    try:
+        yield
+    finally:
+        _SHARES = prev
+
+
+def _expert_shares(router, counts, n_slots):
+    record, table = _SHARES or (None, None)
+    if record is not None:
+        record.append((router.data_ptr(), counts, n_slots))
+    if table is not None:
+        return table[router.data_ptr()]
+    return counts / n_slots
+
+
 def _route(p, x, cfg: MoEConfig):
     """Router probabilities (fp32) and the renormalised top-k gates."""
     logits = torch.einsum("bsm,me->bse", x, p["router"].to(x.dtype))
@@ -654,9 +693,10 @@ def moe_sorted(p, x, cfg: MoEConfig):
 
     # Switch aux loss: E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))
-    ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+    counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
         0, eidx.reshape(-1), torch.ones(eidx.numel(), dtype=torch.float32, device=dev)
-    ) / (B * N)
+    )
+    ce = _expert_shares(p["router"], counts, B * N)
     aux = E * torch.sum(me * ce)
     return y, aux
 

@@ -73,12 +73,15 @@ def global_norm(tree):
     return torch.sqrt(total)
 
 
-def adam_update(cfg: AdamConfig, params, grads, state):
+def adam_update(cfg: AdamConfig, params, grads, state, gnorm=None):
     """Returns ``(new_params, new_state, metrics)``.  If the state carries
     a ``master`` tree, updates apply to the float32 master and the params
-    are its rounding to their dtype."""
+    are its rounding to their dtype.  ``gnorm``, the gradients' global
+    norm, defaults to ``global_norm(grads)``; a caller updating one shard
+    of every leaf passes the norm of the whole gradients."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -18,7 +18,10 @@ array count and shapes: a checkpoint written by either package restores
 into the other's tree of the same structure, array for array.  The
 manifest's ``treedef`` is the port's own structure string, not JAX's.
 bfloat16 leaves are stored as float32 (numpy has no bfloat16; the value is
-exact) and cast back to the tree's dtype on restore.
+exact) and cast back to the tree's dtype on restore.  A leaf placed on a
+mesh (``train.sharding.Sharded``) is gathered whole to the host, as the
+reference's ``np.asarray`` gathers a sharded array, and restores whole on
+the host, for the caller to place again.
 """
 from __future__ import annotations
 
@@ -29,10 +32,13 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.train.sharding import Sharded, gather
 from repro_torch.tree import leaves, structure, unflatten
 
 
 def _host(x) -> np.ndarray:
+    if isinstance(x, Sharded):
+        x = gather(x, "cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -85,8 +91,10 @@ def list_steps(ckpt_dir: str) -> list[int]:
 
 
 def _like(arr: np.ndarray, ref):
-    """``arr`` as ``ref``'s kind: a tensor of its dtype on its device, or
-    a numpy array of its dtype."""
+    """``arr`` as ``ref``'s kind: a tensor of its dtype on its device (on
+    the host for a placed leaf), or a numpy array of its dtype."""
+    if isinstance(ref, Sharded):
+        return torch.from_numpy(np.array(arr)).to(dtype=ref.dtype)
     if isinstance(ref, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(device=ref.device, dtype=ref.dtype)
     return arr.astype(ref.dtype) if hasattr(ref, "dtype") else arr

@@ -1,4 +1,5 @@
-"""Logical-axis sharding rules (MaxText-style) with divisibility fallback.
+"""Logical-axis sharding rules (MaxText-style) with divisibility fallback,
+placement on a mesh, and the collectives of the SPMD train step.
 
 Port of ``src/repro/train/sharding.py``.  Params carry logical axis names
 (see ``models/layers.py``).  ``PARAM_RULES`` maps each name to the
@@ -12,13 +13,20 @@ The JAX types have counterparts here: :class:`PartitionSpec` is a tuple
 (``tuple(jax_spec) == port_spec``), :class:`Mesh` an ``ndarray`` of
 ``torch.device`` laid over a device pool (``launch/mesh.py``), and
 :class:`NamedSharding` a ``(mesh, spec)`` pair that gives each position's
-shard shape.  One process holds the pool.  On a mesh whose positions all
-name one device there is no layout to constrain: :func:`constrain`,
-:func:`unfsdp_params` and :func:`refsdp_params` check the spec and return
-their input, and :func:`device_put` leaves every leaf whole on that
-device.  A mesh over several distinct cards is refused
-(:data:`SPMD_ITEM`); with no mesh active they return their input, as in
-the reference.
+shard shape and slices (:meth:`NamedSharding.shard_index`, the layout of
+``jax.sharding.NamedSharding.devices_indices_map``).  One process holds
+the pool.  :func:`device_put` places a leaf as a :class:`Sharded`: one
+tensor per mesh position, on that position's device, whether or not two
+positions name one device (as forced host devices hold separate buffers).
+The collectives are plain functions over placed leaves, each run by the
+one controller in position order, so their bits do not depend on
+scheduling: :func:`gather` (all-gather), :func:`reshard` (what
+:func:`unfsdp_params` and :func:`refsdp_params` do to placed leaves) and
+:func:`reduce_scatter`.  The train step that uses them is
+``configs/common.py::ArchSpec.make_train_step``; it runs each data group
+(:func:`batch_groups`, :func:`group_devices`) with whole weights, so the
+activations are whole within a group and :func:`constrain` checks its spec
+and returns its input.
 """
 from __future__ import annotations
 
@@ -28,12 +36,9 @@ import math
 import threading
 
 import numpy as np
+import torch
 
 from repro_torch.tree import leaves, tree_map
-
-#: What a mesh over more than one distinct card waits for.
-SPMD_ITEM = ("ROADMAP.md §1 item 6 (a step run SPMD over more than one distinct card: "
-             "placement, collectives and compressed_psum across cards)")
 
 # params: fsdp over "data", tensor-parallel over "model"
 PARAM_RULES: dict[str, tuple] = {
@@ -55,6 +60,10 @@ PARAM_RULES: dict[str, tuple] = {
     "gnn_in": ("data",),
     "gnn_out": ("model",),
 }
+
+# the params' rules without the fsdp factor (``unfsdp_params``)
+UNFSDP_RULES: dict[str, tuple] = {k: (tuple(a for a in v if a != "data") or None) if v else v
+                                  for k, v in PARAM_RULES.items()}
 
 # activations and serve-time caches/states
 ACT_RULES: dict[str, tuple] = {
@@ -154,8 +163,97 @@ class NamedSharding:
             out.append(dim // ways)
         return tuple(out)
 
+    def shard_index(self, position, global_shape) -> tuple:
+        """The slices of an array of ``global_shape`` that the mesh
+        position ``position`` (an index into ``mesh.devices``) holds:
+        ``slice(None)`` on a dim held whole; a dim split over several mesh
+        axes is cut in row-major order of those axes, as
+        ``jax.sharding.NamedSharding.devices_indices_map`` cuts it."""
+        block = self.shard_shape(global_shape)
+        coords = dict(zip(self.mesh.axis_names, position))
+        out = []
+        for i, n in enumerate(block):
+            entry = self.spec[i] if i < len(self.spec) else None
+            if self._ways(entry) == 1:
+                out.append(slice(None))
+                continue
+            k = 0
+            for a in entry if isinstance(entry, tuple) else (entry,):
+                k = k * self.mesh.shape[a] + coords[a]
+            out.append(slice(k * n, (k + 1) * n))
+        return tuple(out)
+
     def __repr__(self):
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def positions(mesh: Mesh):
+    """Every position of ``mesh`` (an index into ``mesh.devices``), in
+    row-major order."""
+    return np.ndindex(mesh.devices.shape)
+
+
+class Sharded:
+    """A leaf placed on a mesh: the global shape and dtype, the
+    :class:`NamedSharding`, and ``shards``, an object ``ndarray`` of the
+    mesh's shape holding one tensor per position on that position's
+    device.  No two positions share a tensor or its storage."""
+
+    def __init__(self, shape, dtype, sharding: NamedSharding, shards: np.ndarray):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+        self.shards = shards
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def element_size(self) -> int:
+        return torch.empty((), dtype=self.dtype, device="meta").element_size()
+
+    def __repr__(self):
+        return (f"Sharded({tuple(self.shape)}, {self.dtype}, {self.sharding.spec!r}, "
+                f"{self.shards.size} shards)")
+
+
+def _block(whole: torch.Tensor, index, device) -> torch.Tensor:
+    """A new tensor on ``device`` holding ``whole[index]``."""
+    part = whole[index]
+    return torch.empty(tuple(part.shape), dtype=whole.dtype, device=device).copy_(part)
+
+
+def reduce_scatter(whole: torch.Tensor, sharding: NamedSharding) -> Sharded:
+    """``whole`` (the summed tensor) split back into each position's block
+    by ``sharding``, position by position."""
+    mesh = sharding.mesh
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    for pos in positions(mesh):
+        shards[pos] = _block(whole, sharding.shard_index(pos, whole.shape), mesh.devices[pos])
+    return Sharded(whole.shape, whole.dtype, sharding, shards)
+
+
+def gather(x, device) -> torch.Tensor:
+    """The whole of ``x`` on ``device`` (an all-gather): each distinct
+    block copied once, from the first position that holds it.  A plain
+    tensor is moved there."""
+    if not isinstance(x, Sharded):
+        return x.to(device)
+    out = torch.empty(tuple(x.shape), dtype=x.dtype, device=device)
+    seen = set()
+    for pos in positions(x.sharding.mesh):
+        index = x.sharding.shard_index(pos, x.shape)
+        key = tuple((s.start, s.stop) for s in index)
+        if key not in seen:
+            seen.add(key)
+            out[index].copy_(x.shards[pos])
+    return out
+
+
+def reshard(x: Sharded, sharding: NamedSharding) -> Sharded:
+    """``x`` placed by another sharding on its mesh: gathered whole on the
+    first position's device, then cut into each position's block."""
+    return reduce_scatter(gather(x, sharding.mesh.devices.flat[0]), sharding)
 
 
 _local = threading.local()
@@ -219,14 +317,6 @@ def make_param_sharding(mesh: Mesh, params_shapes, specs):
     )
 
 
-def require_one_device(mesh: Mesh, what: str) -> None:
-    """Raise unless every position of ``mesh`` names one device."""
-    if len(mesh.distinct_devices) > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh over {len(mesh.distinct_devices)} distinct devices: "
-            f"not ported; {SPMD_ITEM}")
-
-
 def _checked(x, axes, rules, mesh) -> P:
     """The resolved spec of ``x``, after checking that ``axes`` names one
     rule (or ``None``) per dim."""
@@ -241,12 +331,11 @@ def _checked(x, axes, rules, mesh) -> P:
 
 def constrain(x, logical_axes):
     """The counterpart of ``with_sharding_constraint`` against the active
-    mesh: ``x`` itself (no mesh, or a mesh on one device: the tensor is
-    whole there, and the spec is still checked)."""
+    mesh: ``x`` itself, after checking the spec (a data group of the SPMD
+    step computes with whole activations on its device)."""
     mesh = active_mesh()
     if mesh is None:
         return x
-    require_one_device(mesh, "constrain")
     _checked(x, logical_axes, ACT_RULES, mesh)
     return x
 
@@ -267,42 +356,53 @@ def batch_sharding(mesh: Mesh, n_leading=1):
     return NamedSharding(mesh, P(axes if len(axes) > 1 else axes[0]))
 
 
-def _constrain_tree(tree, axes_tree, rules, what):
-    mesh = active_mesh()
-    if mesh is None:
+def _param_tree(tree, axes_tree, rules):
+    """Placed leaves of ``tree`` resharded by ``rules`` on their mesh; a
+    tree of plain tensors checked against the active mesh and returned as
+    it is (whole tensors hold every layout)."""
+    if not any(isinstance(x, Sharded) for x in leaves(tree)):
+        mesh = active_mesh()
+        if mesh is not None:
+            tree_map(lambda x, ax: _checked(x, ax, rules, mesh), tree, axes_tree)
         return tree
-    require_one_device(mesh, what)
-    tree_map(lambda x, ax: _checked(x, ax, rules, mesh), tree, axes_tree)
-    return tree
+
+    def one(x, ax):
+        mesh = x.sharding.mesh
+        return reshard(x, NamedSharding(mesh, _checked(x, ax, rules, mesh)))
+
+    return tree_map(one, tree, axes_tree)
 
 
 def unfsdp_params(params, axes_tree):
     """Drop the fsdp ("data") factor from every param's sharding while
-    keeping tensor parallelism (the reference's one all-gather per step).
-    On one device the params are whole already: ``params`` itself."""
-    rules = {k: (tuple(a for a in v if a != "data") or None) if v else v
-             for k, v in PARAM_RULES.items()}
-    return _constrain_tree(params, axes_tree, rules, "unfsdp_params")
+    keeping tensor parallelism (the reference's one all-gather per step):
+    placed params resharded, plain tensors (whole) returned as they are."""
+    return _param_tree(params, axes_tree, UNFSDP_RULES)
 
 
 def refsdp_params(tree, axes_tree):
     """Constrain a grad tree back to the full param sharding (undo the
-    unfsdp gather for the accumulation buffer): ``tree`` itself on one
-    device."""
-    return _constrain_tree(tree, axes_tree, PARAM_RULES, "refsdp_params")
+    unfsdp gather for the accumulation buffer): placed leaves resharded,
+    plain tensors returned as they are."""
+    return _param_tree(tree, axes_tree, PARAM_RULES)
 
 
 def device_put(tree, shardings):
     """The counterpart of ``jax.device_put(tree, shardings)``: each leaf
-    placed by its sharding.  On a mesh over one device every leaf goes
-    there whole (the same tensor when it is there already)."""
+    placed by its sharding as a :class:`Sharded`, every position's block a
+    tensor of its own on its device (a placed leaf is resharded)."""
 
     def place(x, sh):
-        require_one_device(sh.mesh, "device_put")
-        sh.shard_shape(x.shape)  # the spec must fit the leaf
-        return x.to(sh.mesh.distinct_devices[0])
+        if isinstance(x, Sharded):
+            return reshard(x, sh)
+        return reduce_scatter(x, sh)
 
     return tree_map(place, tree, shardings)
+
+
+def sharding_tree(tree):
+    """The :class:`NamedSharding` of every placed leaf of ``tree``."""
+    return tree_map(lambda x: x.sharding, tree)
 
 
 def shard_bytes(tree, shardings) -> int:
@@ -311,3 +411,39 @@ def shard_bytes(tree, shardings) -> int:
     of the same shape)."""
     return sum(leaves(tree_map(
         lambda x, sh: math.prod(sh.shard_shape(x.shape)) * x.element_size(), tree, shardings)))
+
+
+def held_bytes(tree, position) -> int:
+    """Bytes of storage the tensors of mesh position ``position`` really
+    hold, summed over the placed leaves of ``tree``."""
+    return sum(x.shards[position].untyped_storage().nbytes() for x in leaves(tree))
+
+
+def batch_groups(mesh: Mesh, batch_size: int) -> tuple:
+    """``(axes, G)``: the mesh axes the reference keeps for a batch dim of
+    ``batch_size`` under ``ACT_RULES["batch"]`` (an axis that does not
+    divide it is dropped), and the number of data groups, their product."""
+    entry = _resolve((batch_size,), ("batch",), ACT_RULES, mesh)[0]
+    axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+    return axes, math.prod(mesh.shape[a] for a in axes)
+
+
+def group_devices(devices: np.ndarray, axis_names, axes) -> list:
+    """The device each data group runs on.  The batch is split over the
+    mesh axes ``axes`` in row-major order; group ``g`` holds the positions
+    whose coordinates on ``axes`` number ``g``, and runs on device
+    ``g mod n`` of the ``n`` distinct devices of those positions (position
+    order): over a pool of P distinct cards each runs ceil(G / P) groups."""
+    sizes = dict(zip(axis_names, devices.shape))
+    rows = [[] for _ in range(math.prod(sizes[a] for a in axes))]
+    for pos in np.ndindex(devices.shape):
+        coords = dict(zip(axis_names, pos))
+        g = 0
+        for a in axes:
+            g = g * sizes[a] + coords[a]
+        rows[g].append(devices[pos])
+    out = []
+    for g, row in enumerate(rows):
+        distinct = list(dict.fromkeys(row))
+        out.append(distinct[g % len(distinct)])
+    return out

@@ -15,7 +15,8 @@ included) on the card against the same code on the CPU, and the
 launcher's decode step captured in a CUDA graph against the eager one
 (the SSM, the hybrid and a decoder LM, bit for bit), ``compressed_psum``
 over four slots of the card against the CPU, and ``launch/train.py
---mesh prod`` against ``--mesh none``.
+--mesh prod`` (one data group and sixteen, run SPMD over every card)
+against ``--mesh none``.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -1012,15 +1013,80 @@ def test_compressed_psum_on_card_equals_cpu(dev):
 
 
 def test_production_mesh_on_card_equals_no_mesh(dev, capsys):
-    """``launch/train.py --mesh prod`` on the card gives ``--mesh none``'s
-    losses bit for bit, on a reduced arch (the pool is every card: run on
-    a machine with one)."""
+    """``launch/train.py --mesh prod`` over every card gives ``--mesh
+    none``'s losses bit for bit on a reduced arch (``--batch 2`` is one
+    data group; the params' shards sit on the cards of their positions)."""
     from repro_torch.launch import train as train_mod
 
-    if torch.cuda.device_count() != 1:
-        pytest.skip("a pool of several distinct cards is refused (ROADMAP.md §1 item 6)")
+    n = torch.cuda.device_count()
     args = ["--arch", "mamba2-780m", "--reduced", "--steps", "3", "--batch", "2", "--seq",
             "16", "--device", "cuda"]
     assert train_mod.main(args + ["--mesh", "prod"]) == train_mod.main(args)
-    assert "[mesh] 16x16 ('data', 'model') over 1 distinct device(s) (cuda:0)" in \
+    cards = ", ".join(f"cuda:{i}" for i in range(n))
+    assert f"[mesh] 16x16 ('data', 'model') over {n} distinct device(s) ({cards})" in \
         capsys.readouterr().out
+
+
+def test_production_mesh_moe_groups_on_card_equal_cpu(dev):
+    """``olmoe-1b-7b`` reduced on the 16x16 mesh, batch 16: 16 data groups,
+    each aux loss with the whole batch's expert shares, in remat's
+    recompute too, which on the card runs on autograd's device thread.  One
+    step on the card against the same on the CPU in float32 (TF32 off):
+    the loss, ``grad_norm`` and every new param, ``m`` and ``v`` within
+    1e-4 of the largest magnitude (params: of max(1, it)), as
+    ``chip_smoke.py`` phase 18(a).  A group's own shares move ``m`` by
+    0.4-0.9% of it."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import device_pool, make_production_mesh
+    from repro_torch.launch.train import make_batch_fn, place_on_mesh
+    from repro_torch.optim.adam import AdamConfig, init_adam
+    from repro_torch.train import sharding as shd
+    from repro_torch.tree import leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    spec = ARCHS["olmoe-1b-7b"]
+    params, axes = spec.init(torch.Generator().manual_seed(0), reduced=True, device=cpu)
+    batch = make_batch_fn(spec, spec.cfg(reduced=True), 16, 16, cpu)(0)
+    step = spec.make_train_step(AdamConfig(lr=1e-5, warmup_steps=2, total_steps=10),
+                                reduced=True)
+
+    def run(d):
+        p = tree_map(lambda t: t.to(d), params)
+        mesh = make_production_mesh(devices=device_pool(d))
+        assert shd.batch_groups(mesh, 16)[1] == 16
+        with contextlib.redirect_stdout(io.StringIO()):
+            p, st = place_on_mesh(mesh, p, init_adam(p), axes)
+        p, st, m = step(p, st, {k: v.to(d) for k, v in batch.items()})
+        return ([m["loss"].reshape(1), m["grad_norm"].reshape(1)],
+                [shd.gather(x, cpu) for x in leaves(p)],
+                [shd.gather(x, cpu) for x in leaves((st["m"], st["v"]))])
+
+    want = run(cpu)
+    got = run(dev)
+    for j, (gs, ws) in enumerate(zip(got, want)):
+        for g, w in zip(gs, ws):
+            scale = w.abs().max().item()
+            scale = max(1.0, scale) if j == 1 else scale
+            assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale
+
+
+def test_production_mesh_sixteen_groups_on_card(dev, capsys):
+    """``--mesh prod --batch 16`` on the card: 16 data groups of one
+    sequence, dealt over every card, against ``--mesh none`` at the same
+    batch: the first loss within 1e-6 relative, the second within 1e-4;
+    every position holds its shard-shape bytes."""
+    from repro_torch.launch import train as train_mod
+
+    args = ["--arch", "mamba2-780m", "--reduced", "--steps", "2", "--batch", "16", "--seq",
+            "16", "--device", "cuda"]
+    groups = train_mod.main(args + ["--mesh", "prod"])
+    none = train_mod.main(args)
+    assert abs(groups[0] - none[0]) <= 1e-6 * abs(none[0])
+    assert abs(groups[1] - none[1]) <= 1e-4 * abs(none[1])
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[mesh]")][0]
+    shape_bytes = line.split("positions holds ")[1].split(" (shard shapes)")[0]
+    assert f"held_bytes: 256 position(s) {shape_bytes}" in line

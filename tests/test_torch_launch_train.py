@@ -77,35 +77,61 @@ def test_flags_and_printed_lines_match_reference(capsys):
 @pytest.mark.parametrize("mesh", ["prod", "prod-multipod"])
 def test_production_mesh_names_the_sharding_slice(mesh, monkeypatch, capsys):
     """The production mesh runs on a pool of one device, printing its
-    ``[mesh]`` line, and is refused over several distinct devices, naming
-    the ROADMAP item a multi-card step waits for."""
+    ``[mesh]`` line; over a pool of several distinct devices (the CPU and
+    ``meta``) it is no longer refused: each position's shards sit on its
+    device, and the line names both devices and what each holds."""
     args = ["--arch", "qwen1.5-32b", "--reduced", "--steps", "1", "--mesh", mesh,
             "--device", "cpu"]
     assert len(train_mod.main(args)) == 1
     dims = "2x16x16 ('pod', 'data', 'model')" if mesh == "prod-multipod" else \
         "16x16 ('data', 'model')"
     assert f"[mesh] {dims} over 1 distinct device(s) (cpu)" in capsys.readouterr().out
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import sharding as shd
+    from repro_torch.tree import leaves
+
     monkeypatch.setattr(train_mod, "device_pool",
                         lambda device: (torch.device("cpu"), torch.device("meta")))
-    with pytest.raises(NotImplementedError, match=r"2 distinct devices.*ROADMAP.md §1 item 6"):
-        train_mod.main(args)
+    spec = ARCHS["qwen1.5-32b"]
+    params, opt = train_mod.init_train_state(spec, True, "cpu")
+    axes = spec.init(None, reduced=True, device="meta")[1]
+    pool = train_mod.device_pool("cpu")
+    placed = train_mod.place_on_mesh(make_production_mesh(multi_pod=mesh == "prod-multipod",
+                                                          devices=pool), params, opt, axes)
+    line = capsys.readouterr().out
+    assert f"[mesh] {dims} over 2 distinct device(s) (cpu, meta)" in line
+    assert "cpu holds" in line and "meta holds" in line
+    for x in leaves(placed):
+        for pos in shd.positions(x.sharding.mesh):
+            assert x.shards[pos].device == x.sharding.mesh.devices[pos]
+            assert tuple(x.shards[pos].shape) == x.sharding.shard_shape(x.shape)
 
 
 def test_production_mesh_losses_equal_no_mesh_bit_for_bit(capsys):
+    """``--batch 2`` on the 16x16 mesh is one data group (16 does not
+    divide 2): ``--mesh none``'s losses bit for bit, over real shards.  On
+    the 2x16x16 mesh the same batch splits over the 2-way pod axis into
+    two groups, whose mean loss rounds otherwise: within 1e-5 relative; at
+    ``--batch 1`` it is one group again, bit for bit."""
     args = ["--arch", "mamba2-780m", "--reduced", "--steps", "3", "--batch", "2", "--seq",
             "16", "--lr", "1e-3", "--device", "cpu"]
     none = train_mod.main(args)
     prod = train_mod.main(args + ["--mesh", "prod"])
     multi = train_mod.main(args + ["--mesh", "prod-multipod"])
-    assert prod == none and multi == none  # floats: equal bits
+    assert prod == none  # floats: equal bits
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(multi, none))
+    one = args[:6] + ["1"] + args[7:]
+    assert train_mod.main(one + ["--mesh", "prod-multipod"]) == train_mod.main(one)
     out = capsys.readouterr().out
-    assert out.count("[mesh]") == 2 and "each of the 512 positions" in out
+    assert out.count("[mesh]") == 3 and "each of the 512 positions" in out
 
 
 def test_production_mesh_places_every_leaf_by_its_sharding(capsys):
     """What ``--mesh prod`` places: params by ``make_param_sharding``, the
-    moments by the params' shardings, the step replicated; the bytes the
-    ``[mesh]`` line prints are the shard shapes'."""
+    moments by the params' shardings, the step replicated, each position's
+    block a tensor of its own; the ``[mesh]`` line prints the shard
+    shapes' bytes and ``held_bytes``, equal at every position."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.train import sharding as shd
@@ -116,12 +142,36 @@ def test_production_mesh_places_every_leaf_by_its_sharding(capsys):
     axes = spec.init(None, reduced=True, device="meta")[1]
     mesh = make_production_mesh(multi_pod=True, devices=("cpu",))
     p2, o2 = train_mod.place_on_mesh(mesh, params, opt, axes)
-    assert all(a is b for a, b in zip(leaves((p2, o2)), leaves((params, opt))))
     pshard = shd.make_param_sharding(mesh, params, axes)
+    for x, w, sh in zip(leaves(p2), leaves(params), leaves(pshard)):
+        assert x.sharding.spec == sh.spec
+        assert torch.equal(shd.gather(x, "cpu"), w)
+    assert all(x.sharding.spec == () for x in [o2["step"]])
     want = shd.shard_bytes(params, pshard)
     assert want < sum(t.numel() * 4 for t in leaves(params))
     line = capsys.readouterr().out
-    assert f"holds {want} B of params and {2 * want + 4} B of Adam state" in line
+    assert f"holds {want} B of params and {2 * want + 4} B of Adam state (shard shapes)" in line
+    assert f"held_bytes: 512 position(s) {want} B of params and {2 * want + 4} B" in line
+
+
+def test_production_mesh_sixteen_groups_resume(tmp_path, capsys):
+    """``--mesh prod --batch 16``: 16 data groups of one sequence.  A run
+    stopped after 2 of 4 steps and resumed (its checkpoint gathered whole,
+    then placed again) gives the unbroken run's losses bit for bit: the
+    checkpoint keeps float32 exactly and the step is deterministic here.
+    The unbroken run is within 1e-5 relative of ``--mesh none``."""
+    args = ["--arch", "mamba2-780m", "--reduced", "--batch", "16", "--seq", "8", "--lr",
+            "1e-3", "--device", "cpu", "--total-steps", "4"]
+    none = train_mod.main(args + ["--steps", "4"])
+    args += ["--mesh", "prod"]
+    whole = train_mod.main(args + ["--steps", "4"])
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    first = train_mod.main(args + ["--steps", "2"] + ck)
+    rest = train_mod.main(args + ["--steps", "4", "--resume"] + ck)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert first + rest == whole
+    assert len(whole) == len(none) == 4
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(whole, none)), (whole, none)
 
 
 def test_device_defaults_to_the_card():

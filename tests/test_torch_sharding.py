@@ -136,30 +136,45 @@ def test_one_device_mesh_keeps_values_and_checks_specs():
 
 
 def test_several_distinct_devices_are_refused():
+    """No longer refused: on a mesh over two distinct devices (the CPU and
+    ``meta``), the helpers check specs and return plain tensors as they
+    are, and ``device_put`` places every position's shard on that
+    position's device with its shard shape and slice of the leaf."""
     mesh = make_production_mesh(devices=(CPU, torch.device("meta")))
     assert len(mesh.distinct_devices) == 2
-    x = torch.ones((4, 4))
+    x = torch.arange(256, dtype=torch.float32).reshape(16, 16)
     with shd.use_mesh(mesh):
-        for call in (lambda: shd.constrain(x, ("batch", "embed")),
-                     lambda: shd.unfsdp_params({"w": x}, {"w": ("embed", "mlp")}),
-                     lambda: shd.refsdp_params({"w": x}, {"w": ("embed", "mlp")})):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-                call()
+        assert shd.constrain(x, ("batch", "embed")) is x
+        assert shd.unfsdp_params({"w": x}, {"w": ("embed", "mlp")})["w"] is x
+        assert shd.refsdp_params({"w": x}, {"w": ("embed", "mlp")})["w"] is x
     sh = shd.make_param_sharding(mesh, {"w": x}, {"w": ("embed", "mlp")})
-    with pytest.raises(NotImplementedError, match="distinct"):
-        shd.device_put({"w": x}, sh)
+    placed = shd.device_put({"w": x}, sh)["w"]
+    assert isinstance(placed, shd.Sharded) and placed.shards.shape == (16, 16)
+    for pos in shd.positions(mesh):
+        t = placed.shards[pos]
+        assert t.device == mesh.devices[pos] and tuple(t.shape) == (1, 1)
+        if t.device == CPU:
+            assert torch.equal(t, x[pos[0]:pos[0] + 1, pos[1]:pos[1] + 1])
 
 
 def test_device_put_and_shard_bytes_on_one_device():
+    """Every position of a mesh over one device holds its own block, cut
+    as ``shard_index`` says: ``held_bytes`` is the shard-shape count, and
+    ``gather`` gives the leaf back."""
     mesh = make_production_mesh(devices=(CPU,))
-    tree = {"w": torch.ones((32, 64)), "s": torch.zeros((), dtype=torch.int32)}
+    tree = {"w": torch.arange(32 * 64, dtype=torch.float32).reshape(32, 64),
+            "s": torch.zeros((), dtype=torch.int32)}
     sh = {"w": shd.NamedSharding(mesh, shd.param_spec((32, 64), ("embed", "mlp"), mesh)),
           "s": shd.NamedSharding(mesh, shd.P())}
     placed = shd.device_put(tree, sh)
-    assert placed["w"] is tree["w"] and placed["s"] is tree["s"]
     assert sh["w"].spec == shd.P("data", "model")
     assert sh["w"].shard_shape((32, 64)) == (2, 4)
+    assert sh["w"].shard_index((3, 5), (32, 64)) == (slice(6, 8), slice(20, 24))
+    assert torch.equal(placed["w"].shards[3, 5], tree["w"][6:8, 20:24])
+    assert placed["s"].shards[0, 0] is not placed["s"].shards[0, 1]
     assert shd.shard_bytes(tree, sh) == 2 * 4 * 4 + 4
+    assert all(shd.held_bytes(placed, pos) == 2 * 4 * 4 + 4 for pos in shd.positions(mesh))
+    assert torch.equal(shd.gather(placed["w"], CPU), tree["w"])
     with pytest.raises(ValueError, match="does not split"):
         shd.NamedSharding(mesh, shd.P("data")).shard_shape((24,))
 

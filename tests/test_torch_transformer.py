@@ -250,7 +250,8 @@ def test_unported_kinds_and_training_raise():
     ones since they were ported) and makes a train step (since the
     training stack was ported); an unknown kind is refused, its train step
     too; the production mesh runs on a one-device pool and is refused over
-    several distinct devices, naming the ROADMAP item it waits for."""
+    several distinct devices places every shard on its position's device,
+    with its shard shape."""
     from repro_torch.configs.common import ArchSpec
     from repro_torch.launch import train as train_mod
 
@@ -269,10 +270,21 @@ def test_unported_kinds_and_training_raise():
     assert len(train_mod.main(args)) == 1
     import unittest.mock
 
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.tree import leaves
+
+    spec = T_ARCHS["olmoe-1b-7b"]
+    params, opt = train_mod.init_train_state(spec, True, "cpu")
+    axes = spec.init(None, reduced=True, device="meta")[1]
     with unittest.mock.patch.object(train_mod, "device_pool",
-                                    lambda d: (torch.device("cpu"), torch.device("meta"))), \
-            pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        train_mod.main(args)
+                                    lambda d: (torch.device("cpu"), torch.device("meta"))):
+        mesh = make_production_mesh(devices=train_mod.device_pool("cpu"))
+        placed = train_mod.place_on_mesh(mesh, params, opt, axes)
+    assert len(mesh.distinct_devices) == 2
+    for x in leaves(placed):
+        for pos in np.ndindex(mesh.devices.shape):
+            assert x.shards[pos].device == mesh.devices[pos]
+            assert tuple(x.shards[pos].shape) == x.sharding.shard_shape(x.shape)
 
 
 def test_init_defaults_to_the_card():
