@@ -204,32 +204,41 @@ Phases, each of which fails the run on error:
     losses within 1e-5 relative (whether the bits agree is printed).
 
 18. The sharding rules and meshes (``train/sharding.py``,
-    ``launch/mesh.py``), the int8 gradient compression
-    (``optim/compress.py``) and the dry run (``launch/dryrun.py``), which
-    reach no SCV kernel.  (a) ``launch/train.py``'s ``main`` on phase
-    17(b)'s cell (``mamba2-780m`` at full width and depth, float32, B = 4,
-    S = 512), 2 steps with ``--mesh prod`` (the 16x16 mesh laid over the
-    card) and 2 with ``--mesh none``: the losses equal bit for bit; the
-    ``[mesh]`` line gives each of the 256 positions' bytes of params and
-    Adam state, from the shard shapes and as held.  Then B = 16, S = 128,
-    16 data groups of one sequence: ``--mesh prod`` bit for bit against
-    ``--mesh none`` with 16 microbatches, plain ``--mesh none``'s gap, step
-    ms and memory printed; and the reduced ``olmoe-1b-7b`` in 16 groups
-    (each aux with the whole batch's expert shares), one step, card against
-    CPU.  (b) ``compressed_psum`` over four slots of the card on
-    gradient and error trees of Mamba2-780M's full shapes from a seeded
-    generator: the mean and every member's residual equal the same call on
-    the CPU bit for bit on a seeded sample of leaves; one call timed (CUDA
-    events) beside its byte bound; 30 steps of error feedback keep the
-    accumulated compressed mean within one quantization step of the true
-    mean.  (c) ``dryrun_cell`` on the 16x16 mesh for every shape of one
-    arch of each family (``olmoe-1b-7b``, ``mamba2-780m``, ``zamba2-2.7b``,
-    ``whisper-small``), counted on ``meta`` in worker processes while (a)
-    and (b) run; each cell it finds ``fits_one_card`` runs again with the
-    card as its device, which runs its step there: the counted argument
-    bytes must not exceed the measured ``max_memory_allocated``, and at
-    least one cell must run.  ``python -m repro_torch.launch.dryrun --all``
-    counts every cell.
+    ``launch/mesh.py``), tensor parallelism (``train/tp.py``), the int8
+    gradient compression (``optim/compress.py``) and the dry run
+    (``launch/dryrun.py``), which reach no SCV kernel.  (a)
+    ``launch/train.py``'s ``main`` on ``mamba2-780m`` at full width, 16 of
+    its 48 layers, B = 16, S = 128, 2 steps, ``--mesh prod`` laid out data-only
+    (16x1 over the card: 16 data groups of one sequence, each computing
+    whole): bit for bit against ``--mesh none`` with 16 microbatches,
+    plain ``--mesh none``'s gap, step ms and memory printed; the ``[mesh]``
+    line gives each position's bytes of params and Adam state, from the
+    shard shapes and as held; and the reduced ``olmoe-1b-7b`` in 16 groups
+    on the 16x16 mesh (each aux with the whole batch's expert shares), one
+    step, card against CPU.  (b) ``compressed_psum`` over four slots of
+    the card on gradient and error trees of Mamba2-780M's full shapes from
+    a seeded generator: the mean and every member's residual equal the
+    same call on the CPU bit for bit on a seeded sample of leaves; one call
+    timed (CUDA events) beside its byte bound; 30 steps of error feedback
+    keep the accumulated compressed mean within one quantization step of
+    the true mean.  (d) tensor parallelism in compute: ``mamba2-780m`` at
+    full width and depth computed in float32, phase 17(b)'s B = 4, S =
+    512, 2 steps with ``--mesh prod`` (16x16 over the card: one data group
+    whose products split over 16 "model" positions): a second run's first
+    step gives equal bits, the (1, 16) mesh's first step too, ``--mesh none`` within
+    ``TP_TOL`` (losses) and ``TP_TOL_GNORM`` (``grad_norm``), at LR 1e-6;
+    whisper-small at full width, 6 of its 12 layers a side, B = 2, S =
+    256, whose 12 heads on 16 positions run ``seq_sharded``, within the
+    same of ``--mesh none``; the reduced configs of the five families on a (2, 2) mesh,
+    card against CPU.  (c) ``dryrun_cell`` on the 16x16 mesh for every
+    shape of one arch of each family (``olmoe-1b-7b``, ``mamba2-780m``,
+    ``zamba2-2.7b``, ``whisper-small``), counted on ``meta`` in worker
+    processes while (a), (b) and (d) run (``flops_per_device`` is position
+    (0, 0)'s share); each cell it finds ``fits_one_card`` runs again with
+    the card as its device, which runs its step there: the counted
+    argument bytes must not exceed the measured ``max_memory_allocated``,
+    and at least one cell must run.  ``python -m repro_torch.launch.dryrun
+    --all`` counts every cell.
 
 Each of phases 4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 sets the
 kernels' launch counts to 0 just before it drives its path and reads them
@@ -452,17 +461,30 @@ def train_drive(dev, card: str) -> dict:
     return dict(worst=worst, full=full, restart=restart, seconds=seconds)
 
 
-def timed_main(args, microbatch=None) -> tuple:
+def timed_main(args, microbatch=None, mesh=None, float32=False, layers=None) -> tuple:
     """``launch/train.py``'s ``main(args)`` with stdout captured: ``(losses,
-    grad norms, log, ms of each step on the host clock between
-    synchronizations, max_memory_allocated)``.  The step function is
+    grad norms, log, ms of each step between CUDA events recorded around it
+    on an idle stream, max_memory_allocated)``.  The step function is
     wrapped for the timing; with ``microbatch`` it is made with that many
-    microbatches."""
+    microbatches; ``mesh(devices)`` stands for ``--mesh prod``'s
+    ``make_production_mesh``; with ``float32`` the arch computes
+    in float32 (its config's ``dtype``); ``layers`` cuts its depth
+    (``n_layers``)."""
     import contextlib
     import io
 
+    from repro_torch.configs import ARCHS
     from repro_torch.configs.common import ArchSpec
     from repro_torch.launch import train as train_mod
+
+    name = args[args.index("--arch") + 1]
+    spec = ARCHS[name]
+    cut = ({"dtype": torch.float32} if float32 else {}) | ({"n_layers": layers} if layers else {})
+    if cut:
+        ARCHS[name] = dataclasses.replace(spec, config=dataclasses.replace(spec.config, **cut))
+    make_mesh = train_mod.make_production_mesh
+    if mesh is not None:
+        train_mod.make_production_mesh = lambda multi_pod=False, devices=None: mesh(devices)
 
     ms, gnorms = [], []
     make = ArchSpec.make_train_step
@@ -473,11 +495,13 @@ def timed_main(args, microbatch=None) -> tuple:
         step = make(self, *a, **kw)
 
         def run(*xs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            start.record()
             out = step(*xs)
+            end.record()
             torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
+            ms.append(start.elapsed_time(end))
             gnorms.append(float(out[2]["grad_norm"]))
             return out
 
@@ -491,6 +515,8 @@ def timed_main(args, microbatch=None) -> tuple:
             losses = train_mod.main(args)
     finally:
         ArchSpec.make_train_step = make
+        train_mod.make_production_mesh = make_mesh
+        ARCHS[name] = spec
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     return losses, gnorms, log.getvalue(), ms, peak
@@ -501,47 +527,57 @@ def mesh_line(log: str, n_positions: int) -> str:
     ``n_positions`` positions holds (``held_bytes``) the bytes its shard
     shapes count."""
     lines = [ln for ln in log.splitlines() if ln.startswith("[mesh]")]
-    check(len(lines) == 1, f"18(a): mesh lines {lines}")
+    check(len(lines) == 1, f"18: mesh lines {lines}")
     shapes = lines[0].split("positions holds ")[1].split(" (shard shapes)")[0]
     check(f"each of the {n_positions} positions" in lines[0]
           and f"held_bytes: {n_positions} position(s) {shapes}" in lines[0],
-          f"18(a): held bytes differ from the shard shapes: {lines[0]}")
+          f"18: held bytes differ from the shard shapes: {lines[0]}")
     return lines[0]
 
 
-def mesh_moe(dev, card: str) -> float:
-    """18(a)'s MoE case: ``MESH_MOE_ARCH`` reduced on the 16x16 mesh over
-    the card, ``MESH_MOE_BATCH`` sequences (16 data groups of one), one
-    step, and the same on a 16x16 mesh over the CPU from the same weights
-    and batch.  Every group's aux loss takes the whole batch's expert
-    shares, in remat's recompute too, which on the card runs on autograd's
-    device thread.  The loss, ``grad_norm`` and every leaf of the new
-    params, ``m`` and ``v`` within ``TRAIN_TOL`` of the largest magnitude
-    (params: of max(1, it)); a group's own shares move ``m`` by 0.4-0.9%
-    of it.  Returns the largest error over that scale."""
+def data_only(n):
+    """A data-only mesh of ``n`` positions (a "model" axis of 1) over a
+    pool, for ``timed_main``'s ``mesh``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return lambda devices: make_mesh(n, model_parallel=1, devices=devices)
+
+
+def one_row(devices):
+    """The (1, 16) mesh: one data row of 16 "model" positions."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(16, model_parallel=16, devices=devices)
+
+
+def mesh_card_vs_cpu(arch, make, batch_size, what, dev) -> tuple:
+    """``arch`` reduced, one step on the mesh ``make(pool)`` lays over the
+    card and on the same mesh over the CPU, from the same weights and
+    batch: the loss, ``grad_norm`` and every leaf of the new params, ``m``
+    and ``v`` within ``TRAIN_TOL`` of the largest magnitude (params: of
+    max(1, it)).  Returns ``(the CPU's metrics, the largest error over
+    that scale, the number of leaves held)``."""
     import contextlib
     import io
 
     from repro_torch.configs import ARCHS
-    from repro_torch.launch.mesh import device_pool, make_production_mesh
+    from repro_torch.launch.mesh import device_pool
     from repro_torch.launch.train import make_batch_fn, place_on_mesh
     from repro_torch.optim.adam import AdamConfig, init_adam
     from repro_torch.train import sharding as shd
     from repro_torch.tree import leaves, tree_map
 
     cpu = torch.device("cpu")
-    spec = ARCHS[MESH_MOE_ARCH]
+    spec = ARCHS[arch]
     params, axes = spec.init(torch.Generator().manual_seed(0), reduced=True, device=cpu)
-    batch = make_batch_fn(spec, spec.cfg(reduced=True), MESH_MOE_BATCH, TRAIN_SMALL_SEQ,
-                          cpu)(0)
+    batch = make_batch_fn(spec, spec.cfg(reduced=True), batch_size, TRAIN_SMALL_SEQ, cpu)(0)
     step = spec.make_train_step(AdamConfig(**TRAIN_SMALL_ADAM), reduced=True)
 
     def run(d):
         p = tree_map(lambda t: t.to(d), params)
-        mesh = make_production_mesh(devices=device_pool(d))
+        mesh = make(device_pool(d))
         with contextlib.redirect_stdout(io.StringIO()):
             p, st = place_on_mesh(mesh, p, init_adam(p), axes)
-        check(shd.batch_groups(mesh, MESH_MOE_BATCH)[1] == 16, "18(a) MoE: not 16 groups")
         p, st, m = step(p, st, {k: v.to(d) for k, v in batch.items()})
         out = {"loss": m["loss"].reshape(1), "grad_norm": m["grad_norm"].reshape(1)}
         for what, tree in (("params", p), ("m", st["m"]), ("v", st["v"])):
@@ -550,89 +586,93 @@ def mesh_moe(dev, card: str) -> float:
 
     want, got = run(cpu), run(dev)
     worst = 0.0
-    for what, w in want.items():
-        e, scale = rel_err(got[what].cpu(), w)
-        scale = max(1.0, scale) if what.startswith("params") else max(scale, 1e-30)
-        check(e <= TRAIN_TOL * scale, f"18(a) MoE {what}: card off the CPU by {e} "
+    for leaf, w in want.items():
+        e, scale = rel_err(got[leaf].cpu(), w)
+        scale = max(1.0, scale) if leaf.startswith("params") else max(scale, 1e-30)
+        check(e <= TRAIN_TOL * scale, f"{what} {arch} {leaf}: card off the CPU by {e} "
               f"(max |CPU| {scale})")
         worst = max(worst, e / scale)
+    return want, worst, len(want) - 2
+
+
+def mesh_moe(dev, card: str) -> float:
+    """18(a)'s MoE case: ``MESH_MOE_ARCH`` reduced on the 16x16 mesh,
+    ``MESH_MOE_BATCH`` sequences (16 data groups of one), one step, card
+    against CPU (:func:`mesh_card_vs_cpu`).  Every group's aux loss takes
+    the whole batch's expert shares, in remat's recompute too, which on
+    the card runs on autograd's device thread; a group's own shares move
+    ``m`` by 0.4-0.9% of it.  Returns the largest error over the scale."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import sharding as shd
+
+    check(shd.batch_groups(make_production_mesh(devices=(torch.device("cpu"),)),
+                           MESH_MOE_BATCH)[1] == 16, "18(a) MoE: not 16 groups")
+    want, worst, n = mesh_card_vs_cpu(MESH_MOE_ARCH, lambda pool: make_production_mesh(
+        devices=pool), MESH_MOE_BATCH, "18(a) MoE", dev)
     print(f"[mesh] 18(a) {MESH_MOE_ARCH} reduced, 16 groups (batch {MESH_MOE_BATCH}, seq "
           f"{TRAIN_SMALL_SEQ}), one step on the 16x16 mesh over the card against the CPU: "
           f"loss {float(want['loss'])}, grad_norm {float(want['grad_norm'])}; loss, grad_norm "
-          f"and {len(want) - 2} param/m/v leaves within {worst:.2e} of the largest magnitude "
+          f"and {n} param/m/v leaves within {worst:.2e} of the largest magnitude "
           f"(limit {TRAIN_TOL}) [{card}]")
     return worst
 
 
-def mesh_train(args, dev, card: str) -> dict:
-    """18(a): ``args`` (``MESH_ARGS``: ``TRAIN_ARCH`` at full width and
-    depth, float32, phase 17(b)'s cell, 2 steps) through
-    ``launch/train.py``'s ``main`` on ``dev`` with ``--mesh prod`` (every
-    position holding its own shards on the card), then with ``--mesh
-    none``: one data group, so the losses equal bit for bit.  Then
-    ``MESH_GROUPS_ARGS`` (16 data groups of one sequence) with ``--mesh
-    prod``, held bit for bit (losses and ``grad_norm`` of both steps)
-    against ``--mesh none`` made with 16 microbatches: the same
-    one-sequence passes summed in the same float32 order; plain ``--mesh
-    none`` at that cell gives the step ms and memory to compare and the
-    gap of one pass over 16 sequences, printed.  Each run's step ms (host
-    clock between synchronizations) and ``max_memory_allocated``, and the
-    ``[mesh]`` line (each position's bytes from the shard shapes and as
-    held, each device's sum), are printed.  Then :func:`mesh_moe`.  Over
-    several cards the 16-group run is made once more over all of them,
-    held bit for bit to the same witness."""
-    args = list(args) + ["--device", str(dev)]
-    cells = {"one group": (args, {"none": None}),
-             "16 groups": (list(MESH_GROUPS_ARGS) + ["--device", str(dev)],
-                           {"none": None, "16 microbatches": 16})}
-    out = {}
-    for name, (cell_args, against) in cells.items():
-        runs = {}
-        for run, micro in [("prod", None)] + list(against.items()):
-            t0 = time.perf_counter()
-            losses, gnorms, log, ms, peak = timed_main(
-                cell_args + ["--mesh", "prod" if run == "prod" else "none"], micro)
-            runs[run] = dict(losses=losses, gnorms=gnorms, ms=ms, peak=peak,
-                             seconds=time.perf_counter() - t0)
-            if run == "prod":
-                line = mesh_line(log, 256)
-        prod, none = runs["prod"], runs["none"]
-        check(all(np.isfinite(none["losses"])) and len(prod["losses"]) == len(none["losses"]) == 2,
-              f"18(a) {name}: {runs}")
-        witness = runs["none" if name == "one group" else "16 microbatches"]
-        check(prod["losses"] == witness["losses"] and prod["gnorms"] == witness["gnorms"],
-              f"18(a) {name}: --mesh prod losses {prod['losses']}, grad_norm {prod['gnorms']} "
-              f"against {witness['losses']}, {witness['gnorms']}")
-        if name == "one group":
-            verdict = "losses and grad_norm bit for bit"
-        else:
-            rel = [abs(a - b) / abs(b) for a, b in zip(prod["losses"], none["losses"])]
-            w = runs["16 microbatches"]
-            verdict = (f"bit for bit against --mesh none with 16 microbatches (losses and "
-                       f"grad_norm {prod['gnorms']}; its step ms "
-                       f"{[round(x, 1) for x in w['ms']]}, max_memory_allocated "
-                       f"{w['peak'] / 1e9:.2f} GB); relative gaps to plain --mesh none, one "
-                       f"pass over 16 sequences, {rel[0]:.3e}, {rel[1]:.3e} (printed, not held)")
-        print(line + f" [{card}]")
-        print(f"[mesh] 18(a) {name}: launch/train.py main {' '.join(cell_args)}, float32: losses "
-              f"--mesh prod {prod['losses']} against --mesh none {none['losses']}: {verdict}; "
-              f"step ms --mesh prod {[round(x, 1) for x in prod['ms']]} against --mesh none "
-              f"{[round(x, 1) for x in none['ms']]} (host clock between synchronizations); "
-              f"max_memory_allocated {prod['peak'] / 1e9:.2f} GB against "
-              f"{none['peak'] / 1e9:.2f} GB; {prod['seconds']:.1f} s and "
-              f"{none['seconds']:.1f} s a run (init included) [{card}]")
-        out[name] = runs
-    out["moe"] = mesh_moe(dev, card)
+def mesh_train(dev, card: str) -> dict:
+    """18(a): ``MESH_GROUPS_ARGS`` (``TRAIN_ARCH`` at full width, its depth
+    cut to ``MESH_GROUPS_LAYERS``, 16 data groups of one sequence, 2 steps) through ``launch/train.py``'s
+    ``main`` on ``dev`` with ``--mesh prod`` laid out data-only (16x1: a
+    "model" axis of 1, so each group computes whole), held bit for bit
+    (losses and ``grad_norm`` of both steps) against ``--mesh none`` made
+    with 16 microbatches: the same one-sequence passes summed in the same
+    float32 order; plain ``--mesh none`` gives the step ms and memory to
+    compare and the gap of one pass over 16 sequences, printed.  Each
+    run's step ms (CUDA events),
+    ``max_memory_allocated`` and the ``[mesh]`` line (each position's
+    bytes from the shard shapes and as held, each device's sum) are
+    printed.  Then :func:`mesh_moe`.  Over several cards the 16-group run
+    is made once more over all of them, held bit for bit to the same
+    witness.  (The 16x16 mesh, whose groups split their products over
+    "model", is 18(d).)"""
+    cell_args = list(MESH_GROUPS_ARGS) + ["--device", str(dev)]
+    runs = {}
+    for run, micro in (("prod", None), ("none", None), ("16 microbatches", 16)):
+        t0 = time.perf_counter()
+        losses, gnorms, log, ms, peak = timed_main(
+            cell_args + ["--mesh", "prod" if run == "prod" else "none"], micro,
+            mesh=data_only(16) if run == "prod" else None, layers=MESH_GROUPS_LAYERS)
+        runs[run] = dict(losses=losses, gnorms=gnorms, ms=ms, peak=peak,
+                         seconds=time.perf_counter() - t0)
+        if run == "prod":
+            line = mesh_line(log, 16)
+    prod, none, w = runs["prod"], runs["none"], runs["16 microbatches"]
+    check(all(np.isfinite(none["losses"])) and len(prod["losses"]) == len(none["losses"]) == 2,
+          f"18(a): {runs}")
+    check(prod["losses"] == w["losses"] and prod["gnorms"] == w["gnorms"],
+          f"18(a): --mesh prod (16x1) losses {prod['losses']}, grad_norm {prod['gnorms']} "
+          f"against {w['losses']}, {w['gnorms']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(prod["losses"], none["losses"])]
+    print(line + f" [{card}]")
+    print(f"[mesh] 18(a) 16 groups: launch/train.py main {' '.join(cell_args)} --mesh prod "
+          f"(16x1, data only; {MESH_GROUPS_LAYERS} layers): losses {prod['losses']}, grad_norm {prod['gnorms']}, bit for bit "
+          f"against --mesh none with 16 microbatches (its step ms "
+          f"{[round(x, 1) for x in w['ms']]}, max_memory_allocated {w['peak'] / 1e9:.2f} GB); "
+          f"relative gaps to plain --mesh none, one pass over 16 sequences, {rel[0]:.3e}, "
+          f"{rel[1]:.3e} (printed, not held); step ms --mesh prod "
+          f"{[round(x, 1) for x in prod['ms']]} against --mesh none "
+          f"{[round(x, 1) for x in none['ms']]} (CUDA events); "
+          f"max_memory_allocated {prod['peak'] / 1e9:.2f} GB against {none['peak'] / 1e9:.2f} GB; "
+          f"{prod['seconds']:.1f} s and {none['seconds']:.1f} s a run (init included) [{card}]")
+    out = {"16 groups": runs, "moe": mesh_moe(dev, card)}
     n = torch.cuda.device_count()
     if n > 1:
         cards = list(MESH_GROUPS_ARGS) + ["--device", "cuda"]
-        losses, gnorms, log, ms, peak = timed_main(cards + ["--mesh", "prod"])
-        line = mesh_line(log, 256)
-        witness = out["16 groups"]["16 microbatches"]
-        check(f"over {n} distinct device(s)" in line and losses == witness["losses"]
-              and gnorms == witness["gnorms"],
+        losses, gnorms, log, ms, peak = timed_main(cards + ["--mesh", "prod"],
+                                                   mesh=data_only(16), layers=MESH_GROUPS_LAYERS)
+        line = mesh_line(log, 16)
+        check(f"over {n} distinct device(s)" in line and losses == w["losses"]
+              and gnorms == w["gnorms"],
               f"18(a) over {n} cards: {line}, losses {losses}, grad_norm {gnorms} against "
-              f"{witness['losses']}, {witness['gnorms']}")
+              f"{w['losses']}, {w['gnorms']}")
         print(line + f" [{card}]")
         print(f"[mesh] 18(a) 16 groups over {n} cards: losses {losses} and grad_norm {gnorms} "
               f"bit for bit against --mesh none with 16 microbatches; step ms "
@@ -640,6 +680,89 @@ def mesh_train(args, dev, card: str) -> dict:
         out["cards"] = dict(losses=losses, ms=ms, peak=peak)
     else:
         print("[mesh] 18(a) over several cards: not run (one card in this machine)")
+    return out
+
+
+def tp_gap(got, want) -> float:
+    """The largest relative gap between two runs' losses or grad norms."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def tp_drive(dev, card: str) -> dict:
+    """18(d): tensor parallelism in compute.  ``TP_ARGS`` (``TRAIN_ARCH``
+    at full width and depth, computed in float32, phase 17(b)'s B x S, 2
+    steps at LR 1e-6) through ``launch/train.py``'s ``main`` with ``--mesh prod``:
+    16x16 over the card, one data group whose products split over the 16
+    "model" positions (mamba heads 3 a position, ``w_in``'s packed
+    columns cut across their blocks; the vocabulary 3,152 rows a
+    position).  Held: a second run's first step and the same step on a
+    (1, 16) mesh give equal bits; ``--mesh none``'s losses within ``TP_TOL`` and
+    grad norms within ``TP_TOL_GNORM`` relative.  Then
+    ``TP_WHISPER_ARGS`` (whisper-small, full width, ``TP_WHISPER_LAYERS``
+    of its 12 layers a side, float32): its
+    12 heads do not divide 16, so attention runs ``seq_sharded`` (16
+    divides the 256-token sequences); ``--mesh none`` within the same.
+    Then the reduced configs of the five families on a (2, 2) mesh, one
+    step, card against CPU (:func:`mesh_card_vs_cpu`).  Step ms (CUDA
+    events) and ``max_memory_allocated`` of each run are printed."""
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, args, runs, layers in (
+            (TRAIN_ARCH, TP_ARGS, ("prod", "prod again", "1x16", "none"), None),
+            ("whisper-small", TP_WHISPER_ARGS, ("prod", "none"), TP_WHISPER_LAYERS)):
+        got = {}
+        for run in runs:
+            t1 = time.perf_counter()
+            again = ["--steps", "1"] if run in ("prod again", "1x16") else []  # step 1
+            losses, gnorms, log, ms, peak = timed_main(
+                list(args) + again + ["--device", str(dev), "--mesh",
+                                      "none" if run == "none" else "prod"],
+                mesh=one_row if run == "1x16" else None, float32=True, layers=layers)
+            got[run] = dict(losses=losses, gnorms=gnorms, ms=ms, peak=peak,
+                            seconds=time.perf_counter() - t1)
+            if run == "prod":
+                line = mesh_line(log, 256)
+        prod, none = got["prod"], got["none"]
+        check(all(np.isfinite(prod["losses"] + prod["gnorms"])) and len(prod["losses"]) == 2,
+              f"18(d) {name}: {got}")
+        for other in [r for r in runs if r not in ("prod", "none")]:
+            n = len(got[other]["losses"])
+            check(got[other]["losses"] == prod["losses"][:n]
+                  and got[other]["gnorms"] == prod["gnorms"][:n],
+                  f"18(d) {name}: {other} {got[other]['losses']} {got[other]['gnorms']} against "
+                  f"prod {prod['losses']} {prod['gnorms']}")
+        gaps = tp_gap(prod["losses"], none["losses"]), tp_gap(prod["gnorms"], none["gnorms"])
+        check(gaps[0] <= TP_TOL and gaps[1] <= TP_TOL_GNORM,
+              f"18(d) {name}: --mesh prod off --mesh none by {gaps} (limits {TP_TOL}, "
+              f"{TP_TOL_GNORM})")
+        print(line + f" [{card}]")
+        same = [r for r in runs if r not in ("prod", "none")]
+        print(f"[tp] 18(d) {name}: launch/train.py main {' '.join(args)} --mesh prod, float32: "
+              f"losses {prod['losses']}, grad_norm {prod['gnorms']}; equal bits in "
+              f"{', '.join(same) or 'no second run'}; --mesh none {none['losses']}, "
+              f"{none['gnorms']}: relative gaps {gaps[0]:.3e} (losses, limit {TP_TOL}), "
+              f"{gaps[1]:.3e} (grad_norm, limit {TP_TOL_GNORM}); step ms " + "; ".join(
+                  f"{r} {[round(x, 1) for x in got[r]['ms']]}" for r in runs)
+              + " (CUDA events); max_memory_allocated " + "; ".join(
+                  f"{r} {got[r]['peak'] / 1e9:.2f} GB" for r in runs)
+              + "; s a run (init included) " + "; ".join(
+                  f"{r} {got[r]['seconds']:.1f}" for r in runs) + f" [{card}]")
+        out[name] = got
+    small = {}
+    for arch in TP_FAMILIES:
+        want, worst, n = mesh_card_vs_cpu(
+            arch, lambda pool: make_mesh(4, model_parallel=2, devices=pool), TRAIN_SMALL_BATCH,
+            "18(d)", dev)
+        small[arch] = worst
+        print(f"[tp] 18(d) {arch} reduced on a (2, 2) mesh (two groups, products split two "
+              f"ways), one step, card against CPU: loss {float(want['loss'])}, grad_norm "
+              f"{float(want['grad_norm'])}; loss, grad_norm and {n} param/m/v leaves within "
+              f"{worst:.2e} of the largest magnitude (limit {TRAIN_TOL}) [{card}]")
+    out["small"] = small
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[tp] 18(d): {out['seconds']:.1f} s [{card}]")
     return out
 
 
@@ -740,7 +863,8 @@ def dryrun_drive(counted: dict, dev, card: str) -> dict:
         check(r["status"] == "ok" and r["flops_total"] > 0 and r["memory"]["argument_bytes"] > 0,
               f"18(c) {a} x {s}: {r}")
         w = r["whole_cell"]
-        print(f"[dryrun] 18(c) {a} x {s} on {r['mesh']}: {r['flops_total']:.4e} FLOP a step "
+        print(f"[dryrun] 18(c) {a} x {s} on {r['mesh']}: {r['flops_total']:.4e} FLOP a step, "
+              f"{r['flops_per_device']:.4e} on position (0, 0) "
               f"(counted on meta in {r['count_s']:.1f} s), {r['memory']['argument_bytes']:,} B of "
               f"arguments a position; one card would hold {w['argument_bytes'] / 1e9:.2f} GB of "
               f"arguments, peak {w['peak_bytes'] / 1e9:.2f} GB: "
@@ -784,8 +908,9 @@ def mesh_drive(dev, card: str) -> dict:
                              mp_context=multiprocessing.get_context("spawn")) as workers:
         futures = {c: workers.submit(dryrun_cell, *c, False, False, "cpu")
                    for c in dryrun_cells()}
-        mesh = mesh_train(MESH_ARGS, dev, card)
+        mesh = mesh_train(dev, card)
         psum = psum_drive(ARCHS[TRAIN_ARCH], dev, card)
+        tp = tp_drive(dev, card)
         t_wait = time.perf_counter()
         counted = {c: f.result() for c, f in futures.items()}
         waited = time.perf_counter() - t_wait
@@ -794,10 +919,10 @@ def mesh_drive(dev, card: str) -> dict:
     check(launches == (0, 0), f"phase 18 launched SCV kernels: {launches}")
     seconds = time.perf_counter() - t0
     print(f"[mesh] phase 18: {seconds:.1f} s ({len(counted)} cells counted by "
-          f"{DRYRUN_WORKERS} workers, {waited:.1f} s waited for them after 18(b)); SCV kernel "
-          "launches: 0 (train/sharding.py, launch/mesh.py, optim/compress.py, "
+          f"{DRYRUN_WORKERS} workers, {waited:.1f} s waited for them after 18(d)); SCV kernel "
+          "launches: 0 (train/sharding.py, train/tp.py, launch/mesh.py, optim/compress.py, "
           "launch/hlocost.py and launch/dryrun.py reach no pl.pallas_call)")
-    return dict(mesh=mesh, psum=psum, on_card=on_card, seconds=seconds)
+    return dict(mesh=mesh, psum=psum, tp=tp, on_card=on_card, seconds=seconds)
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -865,12 +990,30 @@ TRAIN_ARCH_PARAMS = 780_382_464  # the reference's count for mamba2-780m
 # (c) restart: the reference's tests/test_system.py case, on the card
 RESTART_ARGS = ["--arch", "qwen1.5-32b", "--reduced", "--batch", "2", "--seq", "16",
                 "--lr", "1e-3", "--total-steps", "8"]
-# phase 18: (a) --mesh prod against --mesh none on phase 17(b)'s cell
-MESH_ARGS = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
-             str(TRAIN_SEQ)]
-# the same tokens a step as 16 data groups of one sequence on the 16x16 mesh,
+# phase 18: (a) 16 data groups of one sequence on a data-only 16x1 mesh,
 # held bit for bit against --mesh none with 16 microbatches
 MESH_GROUPS_ARGS = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", "16", "--seq", "128"]
+MESH_GROUPS_LAYERS = 16  # of 48: the script's time budget
+# (d) tensor parallelism: --mesh prod (16x16, one group over 16 "model"
+# positions) on phase 17(b)'s cell, computed in float32; whisper-small's
+# 12 heads on 16 positions run seq_sharded (16 divides its 256 tokens)
+# (a small LR, as 17(a)'s: Adam's first step moves an entry by about the
+# LR whatever its gradient's size, so at phase 17(b)'s LR the entries whose
+# gradients lie within rounding of zero step apart and the second step's
+# gradients differ far more than the first's)
+TP_ARGS = ["--arch", TRAIN_ARCH, "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
+           str(TRAIN_SEQ), "--lr", "1e-6"]
+TP_WHISPER_ARGS = ["--arch", "whisper-small", "--steps", "2", "--batch", "2", "--seq", "256",
+                   "--lr", "1e-6"]
+TP_WHISPER_LAYERS = 6  # of 12 a side: the script's time budget
+# the relative gaps to --mesh none allowed in the losses and in grad_norm:
+# the split products and combines round otherwise in float32.  The loss
+# limit was stated before the first run on the card; the grad_norm limit
+# after it: at 48 layers the whole model's own gradients, summed over the
+# batch at once or over two halves, land 2e-5 to 7.6e-4 apart leaf by leaf
+# on the card (PERF.md §6)
+TP_TOL, TP_TOL_GNORM = 1e-4, 5e-3
+TP_FAMILIES = ("mamba2-780m", "zamba2-2.7b", "gemma3-4b", "whisper-small", "olmoe-1b-7b")
 # an MoE arch (sorted dispatch, aux loss) reduced, 16 groups, card against CPU
 MESH_MOE_ARCH, MESH_MOE_BATCH = "olmoe-1b-7b", 16
 # (b) compressed_psum over four slots of the card; leaves held against the

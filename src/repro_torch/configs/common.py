@@ -24,8 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.optim.adam import AdamConfig, adam_update, global_norm
+from repro_torch.optim.adam import AdamConfig, adam_update
 from repro_torch.train import sharding as shd
+from repro_torch.train import tp as TP
 from repro_torch.tree import leaves, tree_map, unflatten
 
 #: Each family's module under ``repro_torch.models`` and its init, loss
@@ -111,12 +112,13 @@ class ArchSpec:
         moe = getattr(self.cfg(reduced), "moe", None) is not None
 
         def value_and_grad(params, batch):
-            flat = [t.detach().requires_grad_(True) for t in leaves(params)]
+            lv = leaves(params)  # a ``tp.Split`` leaf differentiates by its parts
+            flat = [t.detach().requires_grad_(True) for t in TP.flatten(lv)]
             with torch.enable_grad():
-                loss = loss_fn(unflatten(params, flat), batch)
+                loss = loss_fn(unflatten(params, TP.rebuild(lv, flat)), batch)
                 grads = torch.autograd.grad(loss, flat, allow_unused=True)
             grads = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, grads)]
-            return loss.detach(), unflatten(params, grads)
+            return loss.detach(), unflatten(params, TP.rebuild(lv, grads))
 
         def train_step(params, opt_state, batch):
             if isinstance(leaves(params)[0], shd.Sharded):
@@ -267,90 +269,165 @@ class ArchSpec:
 
 
 # -- the SPMD step over a mesh --------------------------------------------------
-def _global_shares(loss_fn, whole, slices, devs) -> dict:
-    """Device -> (layer key -> expert shares of the whole microbatch): each
-    data group's slot counts from a forward without gradients
-    (``layers.expert_shares``), summed over the groups."""
+def _global_shares(loss_fn, trees, slices, groups, homes) -> list:
+    """For each data group, (layer key -> expert shares of the whole
+    microbatch), on the group's first device (``homes``): each group's
+    slot counts from a forward without gradients
+    (``layers.expert_shares``), summed over the groups in order."""
     records = []
     with torch.no_grad():
-        for gb, d in zip(slices, devs):
+        for tree, gb, grp in zip(trees, slices, groups):
             rec = []
-            with L.expert_shares(record=rec):
-                loss_fn(whole[d], gb)
+            with L.expert_shares(record=rec), TP.use_group(grp):
+                loss_fn(tree, gb)
             records.append(rec)
     if not records[0]:  # no sorted dispatch: the groups keep their own shares
-        return {}
-    home = devs[0]
+        return []
     slots = sum(r[0][2] for r in records)
-    shares = [sum(r[i][1].to(home) for r in records) / slots for i in range(len(records[0]))]
-    tables = {}
-    for rec, d in zip(records, devs):
-        tables.setdefault(d, {key: s.to(d) for (key, _, _), s in zip(rec, shares)})
-    return tables
+    shares = [sum(r[i][1].to(homes[0]) for r in records) / slots
+              for i in range(len(records[0]))]
+    return [{key: s.to(home) for (key, _, _), s in zip(rec, shares)}
+            for rec, home in zip(records, homes)]
 
 
 def spmd_step(adam_cfg, value_and_grad, moe_loss_fn, k, once, params, opt_state, batch):
     """One train step SPMD over the mesh the params are placed on.
 
     Each of the ``k`` microbatches is split over the data groups, the mesh
-    axes the reference keeps for its batch dim (``sharding.batch_groups``);
-    group ``g`` runs on ``sharding.group_devices``' device for it, with the
-    params gathered whole there (one copy a device, shared by its groups,
-    gathered at each microbatch, or once a step with ``once``).  Each
-    group's gradients are added into one float32 whole-gradient buffer per
-    leaf on the mesh's first device, group by group within a microbatch
-    and microbatch by microbatch, each scaled by ``1 / (k G)`` (the
-    reference's ``g / k`` of the groups' mean): the order and the scale of
-    the unplaced step with ``k G`` microbatches.  The global norm is taken once from that buffer, which is then
-    reduce-scattered to every position's block, where ``adam_update`` runs
-    on the position's shards of the params and the moments.  With one
-    group and one microbatch the gradients go to the update as they come,
-    as off the mesh.  ``moe_loss_fn``, the loss of an arch with sorted MoE
-    dispatch, gives every group the whole microbatch's expert shares in its
-    aux loss (:func:`_global_shares`).  Over several cards the buffer and
-    every gather go through the mesh's first device, a parameter server,
-    not a per-device reduce-scatter.  Returns placed params and state, and
-    the whole batch's ``loss``, ``grad_norm`` and ``lr``."""
+    axes the reference keeps for its batch dim (``sharding.batch_groups``).
+    A group computes over its positions along "model"
+    (``sharding.group_positions``) with the blocks of each param that
+    those positions hold once the batch axes' factor is gathered
+    (``sharding.compute_sharding``, the reference's ``unfsdp_params``): a
+    leaf split over "model" as a ``tp.Split`` of the positions' blocks, a
+    leaf held whole as one tensor; with a "model" axis of one, whole
+    leaves on the group's device (``sharding.group_devices``), and the
+    model code computes whole.  The blocks are gathered at each
+    microbatch, or once a step with ``once``; positions on one device
+    share them.  Under a "model" axis of ``M > 1`` the model code splits
+    each product the reference constrains over the positions
+    (``train/tp.py``).
+
+    Each device sums the gradient blocks of the groups it runs, scaled by
+    ``1 / (k G)``, group by group within a microbatch and microbatch by
+    microbatch (the unplaced step's order with ``k G`` microbatches; with
+    one group and one microbatch the gradients are taken as they come).
+    ``grad_norm`` is a fixed-order sum of squared norms: of each model
+    position's blocks in position order and leaf order when one device
+    holds every sum (with one position, ``global_norm`` of the whole
+    gradients), else of each position's reduced shard.  The sums are then
+    reduce-scattered to every position's shard by
+    ``sharding.reduce_scatter_plan`` (peer copies from the device that
+    summed a block to the position's device, summed in source order), and
+    ``adam_update`` runs on each position's shards of the params and the
+    moments.  ``moe_loss_fn``, the loss of an arch with sorted MoE
+    dispatch, gives every group the whole microbatch's expert shares in
+    its aux loss (:func:`_global_shares`).  Returns placed params and
+    state, and the whole batch's ``loss``, ``grad_norm`` and ``lr``."""
     flat = leaves(params)
     mesh = flat[0].sharding.mesh
     b = next(iter(batch.values())).shape[0] // k
     kept, G = shd.batch_groups(mesh, b)
-    devs = shd.group_devices(mesh.devices, mesh.axis_names, kept)
-    home = mesh.devices.flat[0]
+    M = mesh.shape.get("model", 1)
+    rows = shd.group_positions(mesh, kept)
+    if M == 1:
+        row_devs = [[d] for d in shd.group_devices(mesh.devices, mesh.axis_names, kept)]
+    else:
+        row_devs = [[mesh.devices[pos] for pos in row] for row in rows]
+    groups = [TP.Group(devs) if M > 1 else None for devs in row_devs]
+    views = [shd.compute_sharding(x.sharding) for x in flat]
+    splits = [shd.model_split_dim(x.sharding) for x in flat]
     n, per = k * G, b // G
 
-    def gather_whole():
-        return {d: tree_map(lambda x, d=d: shd.gather(x, d), params) for d in dict.fromkeys(devs)}
+    def group_trees():
+        """Each group's leaves: a block a (device, leaf, region) built once."""
+        cache, trees = {}, []
+        for row, devs in zip(rows, row_devs):
+            out = []
+            for j, x in enumerate(flat):
+                blocks = []
+                for m in range(len(row) if splits[j] is not None else 1):
+                    index = views[j].shard_index(row[m], x.shape)
+                    key = (devs[m], j, shd.region(index, x.shape))
+                    if key not in cache:
+                        cache[key] = shd.gather_block(x, index, devs[m])
+                    blocks.append(cache[key])
+                out.append(TP.Split(blocks, splits[j], x.shape) if splits[j] is not None
+                           else blocks[0])
+            trees.append(unflatten(params, out))
+        return trees
 
-    kept_whole = gather_whole() if once else None
-    loss = grads = None
+    kept_trees = group_trees() if once else None
+    loss = None
+    acc = [{} for _ in flat]  # leaf -> {(region, device): summed gradient block}
+    home = row_devs[0][0]
     for i in range(k):
         mb = batch if k == 1 else {name: x.reshape((k, b) + tuple(x.shape[1:]))[i]
                                    for name, x in batch.items()}
-        whole = kept_whole if once else gather_whole()
+        trees = kept_trees if once else group_trees()
         slices = [mb] if G == 1 else [
-            {name: x[g * per:(g + 1) * per].to(devs[g]) for name, x in mb.items()}
+            {name: x[g * per:(g + 1) * per].to(row_devs[g][0]) for name, x in mb.items()}
             for g in range(G)]
-        tables = _global_shares(moe_loss_fn, whole, slices, devs) \
-            if moe_loss_fn is not None and G > 1 else {}
+        tables = _global_shares(moe_loss_fn, trees, slices, groups, [d[0] for d in row_devs]) \
+            if moe_loss_fn is not None and G > 1 else []
         for g in range(G):
-            with L.expert_shares(table=tables[devs[g]]) if tables else contextlib.nullcontext():
-                l, gr = value_and_grad(whole[devs[g]], slices[g])
+            with L.expert_shares(table=tables[g]) if tables else contextlib.nullcontext(), \
+                    TP.use_group(groups[g]):
+                l, gr = value_and_grad(trees[g], slices[g])
+            for j, x in enumerate(leaves(gr)):
+                blocks = x.parts if isinstance(x, TP.Split) else [x]
+                for m, t in enumerate(blocks):
+                    key = (shd.region(views[j].shard_index(rows[g][m], flat[j].shape),
+                                      flat[j].shape), row_devs[g][m])
+                    if n == 1:
+                        acc[j][key] = t
+                    elif key not in acc[j]:
+                        acc[j][key] = torch.zeros(t.shape, dtype=torch.float32,
+                                                  device=t.device).add_(t.to(torch.float32) / n)
+                    else:
+                        acc[j][key].add_(t.to(torch.float32) / n)
             if n == 1:
-                loss, grads = l, leaves(gr)
-                continue
-            if grads is None:
-                loss = torch.zeros((), dtype=torch.float32, device=home)
-                grads = [torch.zeros(p.shape, dtype=torch.float32, device=home) for p in flat]
-            for a, gg in zip(grads, leaves(gr)):
-                a.add_(gg.to(device=home, dtype=torch.float32) / n)
-            loss = loss + l.to(home) / n
+                loss = l
+            else:
+                if loss is None:
+                    loss = torch.zeros((), dtype=torch.float32, device=home)
+                loss = loss + l.to(home) / n
             del gr
-        del whole
-    del kept_whole
-    gnorm = global_norm(grads)
-    scattered = [shd.reduce_scatter(g, p.sharding) for g, p in zip(grads, flat)]
-    del grads
+        del trees
+    del kept_trees
+
+    plans = [shd.reduce_scatter_plan(x.sharding, x.shape, shd.grad_sources(
+        x.sharding, x.shape, rows, row_devs)) for x in flat]
+    one_device = len({dev for a in acc for _, dev in a}) == 1
+    scattered = []
+    for x, a, plan in zip(flat, acc, plans):
+        shards = np.empty(mesh.devices.shape, dtype=object)
+        for pos, dev, pieces in plan:
+            (src_dev, reg, sl), *rest = pieces
+            out = torch.empty(tuple(s.stop - s.start for s in sl), dtype=a[(reg, src_dev)].dtype,
+                              device=dev).copy_(a[(reg, src_dev)][sl])
+            for src_dev, reg, sl in rest:
+                out.add_(a[(reg, src_dev)][sl].to(dev))
+            shards[pos] = out
+        scattered.append(shd.Sharded(x.shape, out.dtype, x.sharding, shards))
+    if one_device:  # each model position's blocks, leaf by leaf
+        pieces = [a[(shd.region(v.shard_index(rows[0][m], x.shape), x.shape), home)]
+                  for m in range(M) for x, a, v, sp in zip(flat, acc, views, splits)
+                  if sp is not None or m == 0]
+    else:  # each distinct shard once, position by position
+        seen, pieces = set(), []
+        for pos in shd.positions(mesh):
+            for j, x in enumerate(flat):
+                key = (j, shd.region(x.sharding.shard_index(pos, x.shape), x.shape))
+                if key not in seen:
+                    seen.add(key)
+                    pieces.append(scattered[j].shards[pos])
+    total = None  # global_norm's sum, each square summed where its piece lies
+    for t in pieces:
+        sq = torch.sum(torch.square(t.to(torch.float32))).to(home)
+        total = sq if total is None else total + sq
+    gnorm = torch.sqrt(total)
+    del acc
 
     keys = [key for key in ("m", "v", "master") if key in opt_state]
     state = {key: leaves(opt_state[key]) for key in keys}

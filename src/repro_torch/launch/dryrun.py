@@ -29,17 +29,19 @@ run in Python, so no trip count hides.  :func:`dryrun_cell` instead
   (:func:`run_cell`): ``max_memory_allocated`` and the step's ms by CUDA
   events.
 
-A train cell's ``collective_bytes_per_device`` and ``collective_counts``
-are those of the port's SPMD step (``configs/common.py::spmd_step``),
-counted from the shard shapes without running it (:func:`spmd_collectives`):
-its param gathers and its gradient reduce-scatter.  The reference's
-compiled step also moves the activations of its tensor-parallel products,
-which the port's step does not split.
+``flops_per_device`` is what position (0, 0) runs (:func:`position_count`):
+for a train cell, data group 0's forward and backward split over its
+"model" positions as the SPMD step splits them (``train/tp.py``), run on
+``meta``, the FLOPs of position 0's share and of what the group computes
+whole; a prefill or decode step runs whole on one device.  A train cell's
+``collective_bytes_per_device`` and ``collective_counts`` are those of the
+port's SPMD step (``configs/common.py::spmd_step``), counted from the
+shard shapes (:func:`spmd_collectives`): its param gathers, its gradient
+reduce-scatter, and the tensor-parallel collectives of its products that
+the same run on ``meta`` records.
 
 Keys the port cannot know are ``null``, never 0: ``lower_s`` and
-``compile_s`` (nothing is lowered or compiled), ``flops_per_device`` (a
-count per device needs each op's operands' shardings, which an eager run on
-one device does not have), ``bytes_per_device`` and
+``compile_s`` (nothing is lowered or compiled), ``bytes_per_device`` and
 ``xla_*_uncorrected`` (the compiled HLO's traffic and cost model), the
 collectives of a prefill or decode cell (the port runs those steps on one
 device, with no collective), ``memory["temp_bytes"]`` and
@@ -50,6 +52,7 @@ the compiler's choice).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -57,15 +60,18 @@ import time
 import weakref
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.configs import ARCHS
 from repro_torch.configs.common import SHAPES, abstract_opt_state, bf16_params
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import device_pool, make_production_mesh
+from repro_torch.models import layers as L
 from repro_torch.train import sharding as shd
+from repro_torch.train import tp
 from repro_torch.tree import leaves, tree_map
 
 CARD_BYTES = 80e9  # one H100's device memory
@@ -206,15 +212,19 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 
 
-def spmd_collectives(params, pshard, microbatch: int, once: bool = False) -> tuple:
+def spmd_collectives(params, pshard, microbatch: int, once: bool = False,
+                     activations: dict | None = None) -> tuple:
     """``(bytes, counts)`` a mesh position's collectives move in one SPMD
     train step, by kind, counted as the reference counts HLO collectives
-    (each op's output bytes): every microbatch gathers each split param
-    leaf whole (all-gather), or once a step with ``once``
-    (``gather_params_once``); each leaf's float32 gradient is
-    reduce-scattered to its shard once a step (an all-reduce of the whole
-    for a leaf held whole everywhere).  From shapes alone: ``params`` may
-    be on ``meta``."""
+    (each op's output bytes): every microbatch gathers the batch axes'
+    factor of each param leaf stored split over them, to the block the
+    position computes with (``sharding.compute_sharding``; all-gather), or
+    once a step with ``once`` (``gather_params_once``); each leaf's
+    float32 gradient is reduce-scattered to its shard once a step (an
+    all-reduce of the whole for a leaf held whole everywhere); and
+    ``activations``, the tensor-parallel collectives of the step's
+    products (kind -> ``[bytes, count]``, from :func:`position_count`).
+    From shapes alone: ``params`` may be on ``meta``."""
     nbytes, counts = dict.fromkeys(COLLECTIVES, 0), dict.fromkeys(COLLECTIVES, 0)
 
     def add(kind, shape, itemsize, times=1):
@@ -223,10 +233,159 @@ def spmd_collectives(params, pshard, microbatch: int, once: bool = False) -> tup
 
     for x, sh in zip(leaves(params), leaves(pshard)):
         whole, block = tuple(x.shape), sh.shard_shape(x.shape)
-        if block != whole:
-            add("all-gather", whole, x.element_size(), 1 if once else microbatch)
+        compute = shd.compute_sharding(sh).shard_shape(x.shape)
+        if block != compute:
+            add("all-gather", compute, x.element_size(), 1 if once else microbatch)
         add("reduce-scatter" if block != whole else "all-reduce", block, 4)
+    for kind, (b, n) in (activations or {}).items():
+        nbytes[kind] += b
+        counts[kind] += n
     return nbytes, counts
+
+
+_BACKWARD_CALLS = (torch.autograd.grad, torch.autograd.backward, torch.Tensor.backward)
+
+
+class _PositionTags(TorchFunctionMode):
+    """While a group's step runs: each torch call tags the autograd nodes
+    it made (those behind its outputs not tagged by an earlier call) with
+    its position (``tp.current_position``; ``None`` at home), and marks
+    the ops it dispatches as made by that position."""
+
+    def __init__(self):
+        super().__init__()
+        self.stack = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in _BACKWARD_CALLS:  # the backward's ops take their nodes' tags
+            return func(*args, **(kwargs or {}))
+        pos = tp.current_position()
+        self.stack.append(pos)
+        try:
+            out = func(*args, **(kwargs or {}))
+        finally:
+            self.stack.pop()
+        todo = [t.grad_fn for t in tree_leaves(out)
+                if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+        while todo:  # the nodes this call made: those not tagged yet
+            node = todo.pop()
+            if node is None or "tp_position" in node.metadata:
+                continue
+            node.metadata["tp_position"] = pos
+            todo.extend(nxt for nxt, _ in node.next_functions)
+        return out
+
+
+class _PositionFlops(TorchDispatchMode):
+    """The FLOPs (``torch.utils.flop_counter``'s formulas) of the ops that
+    position 0 runs: those of its share and those computed at home (which
+    every position of the reference computes).  An op dispatched by a
+    torch call takes the call's position; one of remat's recompute, the
+    position whose share is being recomputed; an op of the backward, the
+    position tagged on the autograd node that runs it."""
+
+    def __init__(self, tags: _PositionTags):
+        super().__init__()
+        self.tags = tags
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            if self.tags.stack:
+                pos = self.tags.stack[-1]
+            elif L.RECOMPUTING:  # remat's recompute: the forward's code again
+                pos = tp.current_position()
+            else:
+                node = torch._C._current_autograd_node()
+                pos = None if node is None else node.metadata.get("tp_position")
+            if pos in (None, 0):
+                self.flops += count(*args, **(kwargs or {}), out_val=out)
+        return out
+
+
+def _depth(spec, reduced):
+    """``(units, at)``: how many times the arch repeats its layer unit (a
+    pattern group, a Mamba2 block, a shared-attention group, an
+    encoder-decoder layer pair), and ``at(n)``, the spec cut to ``n``."""
+    cfg = spec.cfg(reduced)
+    if spec.kind == "lm":
+        units, field = cfg.n_rep, lambda n: {"n_layers": cfg.first_dense + cfg.pattern_len * n}
+    elif spec.kind == "hybrid":
+        units, field = cfg.n_shared_calls, lambda n: {"n_mamba": cfg.share_every * n}
+    else:
+        units, field = cfg.n_layers, lambda n: {"n_layers": n}
+
+    def at(n):
+        cut = dataclasses.replace(cfg, **field(n))
+        return dataclasses.replace(spec, **({"reduced": cut} if reduced else {"config": cut}))
+
+    return units, at
+
+
+def position_count(spec, shape_name, mesh, reduced=False, batch=None) -> dict:
+    """What position (0, 0) of ``mesh`` runs in the cell's step, counted
+    on ``meta``: ``flops`` and, for a train cell, ``activations``, the
+    tensor-parallel collectives of its products (kind -> ``[bytes,
+    count]``, forward, backward and remat's recompute).  A train cell runs
+    data group 0's forward and backward over its "model" positions, with
+    the param blocks they compute with, at the group's microbatch (the
+    step runs ``microbatch`` of them: the counts are multiplied by it);
+    ``batch`` (tensors on ``meta``) stands for the shape's.  The layers
+    repeat one unit, so the counts are affine in the depth: they are
+    taken at one and two units and carried to the arch's depth.  Prefill
+    and decode steps run whole on one device, so position (0, 0) runs all
+    of the counted step."""
+    shape = SHAPES[shape_name]
+    if shape.kind != "train":
+        return {"flops": count_step(spec, shape_name, reduced)["flops"], "activations": {}}
+    units, at = _depth(spec, reduced)
+    one = _group_count(at(1), shape_name, mesh, reduced, batch)
+    if units == 1:
+        return one
+    two = _group_count(at(2), shape_name, mesh, reduced, batch)
+
+    def carry(a, b):
+        return a + (units - 1) * (b - a)
+
+    kinds = dict.fromkeys(list(one["activations"]) + list(two["activations"]))
+    acts = {}
+    for kind in kinds:
+        a, b = one["activations"].get(kind, [0, 0]), two["activations"].get(kind, [0, 0])
+        acts[kind] = [carry(a[0], b[0]), carry(a[1], b[1])]
+    return {"flops": carry(one["flops"], two["flops"]), "activations": acts}
+
+
+def _group_count(spec, shape_name, mesh, reduced, batch) -> dict:
+    """:func:`position_count` of a train cell at the spec's depth."""
+    cell = cell_trees(spec, shape_name, reduced)
+    if batch is not None:
+        cell["batch"] = batch
+    k = 1 if reduced else spec.train_microbatch
+    b = next(iter(cell["batch"].values())).shape[0] // k
+    kept, G = shd.batch_groups(mesh, b)
+    row = shd.group_positions(mesh, kept)[0]
+    M = len(row)
+    pshard = shd.make_param_sharding(mesh, cell["params"], cell["axes"])
+
+    def blocks(x, sh):
+        view, split = shd.compute_sharding(sh), shd.model_split_dim(sh)
+        parts = [torch.empty(view.shard_shape(x.shape), dtype=x.dtype, device="meta")
+                 .requires_grad_(x.is_floating_point())
+                 for _ in range(M if split is not None else 1)]
+        return tp.Split(parts, split, x.shape) if split is not None else parts[0]
+
+    params = tree_map(blocks, cell["params"], pshard)
+    batch = {n: x[: b // G] for n, x in cell["batch"].items()}
+    group = tp.Group([torch.device("meta")] * M) if M > 1 else None
+    tags = _PositionTags()
+    with tp.recording() as rec, tp.use_group(group), tags, _PositionFlops(tags) as counter:
+        with torch.enable_grad():
+            loss = spec.loss_fn(reduced)(params, batch)
+            torch.autograd.grad(loss, tp.flatten(leaves(params)), allow_unused=True)
+    return {"flops": k * counter.flops,
+            "activations": {kind: [k * nb, k * n] for kind, (nb, n) in rec.items()}}
 
 
 def count_step(spec, shape_name, reduced=False) -> dict:
@@ -325,9 +484,12 @@ def dryrun_cell(arch_name: str, shape_name: str, multi_pod: bool = False,
         out_shardings = (_batch_shardings(mesh, out[0]), shardings["state"])
     out_bytes = shd.shard_bytes(out, out_shardings) if kind != "prefill" else None
     coll_bytes = coll_counts = None
+    position = position_count(spec, shape_name, mesh) if kind == "train" else \
+        {"flops": counted["flops"]}
     if kind == "train":
         coll_bytes, coll_counts = spmd_collectives(cell["params"], shardings["params"],
-                                                   spec.train_microbatch)
+                                                   spec.train_microbatch,
+                                                   activations=position["activations"])
     whole = {"argument_bytes": counted["argument_bytes"],
              "output_bytes": counted["output_bytes"], "peak_bytes": counted["peak_bytes"]}
     result = {
@@ -338,7 +500,7 @@ def dryrun_cell(arch_name: str, shape_name: str, multi_pod: bool = False,
         "lower_s": None,
         "compile_s": None,
         "count_s": time.time() - t0,
-        "flops_per_device": None,
+        "flops_per_device": position["flops"],
         "flops_total": counted["flops"],
         "bytes_per_device": None,
         "xla_flops_per_device_uncorrected": None,

@@ -16,9 +16,13 @@ lay the production mesh over the pool of ``--device`` (every card for
 ``cuda``), place the params and the Adam state by ``train/sharding.py``'s
 rules (each mesh position holds its own shards, on its device), print each
 position's bytes, and run the loop under the mesh: the step runs SPMD over
-it (``configs/common.py::spmd_step``).  A batch that splits into one data
-group gives ``--mesh none``'s losses bit for bit.  Checkpoints hold the
-whole leaves; ``--resume`` places what it restores by the same shardings.
+it (``configs/common.py::spmd_step``): each data group splits its
+products over the 16 "model" positions (``train/tp.py``; the ``[mesh]``
+line says how for the arch) and the gradients are reduce-scattered from
+the devices that summed them.  The losses are ``--mesh none``'s within
+float32 rounding; on a mesh whose "model" axis is 1, a batch that splits
+into one data group gives them bit for bit.  Checkpoints hold the whole
+leaves; ``--resume`` places what it restores by the same shardings.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.launch.mesh import device_pool, make_production_mesh
 from repro_torch.optim.adam import AdamConfig, init_adam
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import sharding as shd
+from repro_torch.train import tp
 from repro_torch.train.fault import DataSkipper, StragglerDetector
 from repro_torch.tree import leaves
 
@@ -65,11 +70,13 @@ def init_train_state(spec, reduced, device="cuda"):
     return params, init_adam(params)
 
 
-def place_on_mesh(mesh, params, opt_state, axes):
+def place_on_mesh(mesh, params, opt_state, axes, split=None):
     """Params and Adam state placed by their shardings (the moments by the
     params'; the step replicated), and the ``[mesh]`` line: what one mesh
     position holds, from the shard shapes and as its tensors' storage
-    (``held_bytes``), and what each distinct device holds in all."""
+    (``held_bytes``), what each distinct device holds in all, and
+    ``split``, how the "model" axis splits the step's products
+    (``tp.describe``)."""
     pshard = shd.make_param_sharding(mesh, params, axes)
     oshard = {"m": pshard, "v": pshard, "step": shd.NamedSharding(mesh, shd.P())}
     params, opt_state = shd.device_put(params, pshard), shd.device_put(opt_state, oshard)
@@ -87,7 +94,8 @@ def place_on_mesh(mesh, params, opt_state, axes):
           f"{p_bytes} B of params and {o_bytes} B of Adam state (shard shapes); held_bytes: "
           + "; ".join(f"{n} position(s) {hp} B of params and {ho} B of Adam state"
                       for (hp, ho), n in sorted(held.items()))
-          + "; " + "; ".join(f"{d} holds {per_device[d]} B in all" for d in devs))
+          + "; " + "; ".join(f"{d} holds {per_device[d]} B in all" for d in devs)
+          + (f"; {split}" if split else ""))
     return params, opt_state
 
 
@@ -123,7 +131,8 @@ def main(argv=None):
     params, opt_state = init_train_state(spec, args.reduced, args.device)
     if mesh is not None:
         axes = spec.init(None, reduced=args.reduced, device="meta")[1]
-        params, opt_state = place_on_mesh(mesh, params, opt_state, axes)
+        params, opt_state = place_on_mesh(mesh, params, opt_state, axes, split=tp.describe(
+            spec, args.reduced, mesh.shape["model"]))
     step_fn = spec.make_train_step(adam_cfg, reduced=args.reduced)
     batch_fn = make_batch_fn(spec, cfg, args.batch, args.seq, args.device)
 

@@ -17,6 +17,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _stacked_init, _take, _unstack
+from repro_torch.train import tp as TP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +118,14 @@ def cross_attention(p, x, kv, cfg: EncDecConfig, precomputed=None):
     """x: [B,Sq,M] queries (decoder); kv: [B,Sk,M] encoder output (or None
     when precomputed k/v are given — the decode-time fast path)."""
     B, Sq, M = x.shape
+    if TP.active() is not None and precomputed is None:
+        Sk = kv.shape[1]
+        pos_q = torch.arange(Sq, dtype=torch.int32, device=x.device)[None].expand(B, Sq)
+        pos_k = torch.arange(Sk, dtype=torch.int32, device=x.device)[None].expand(B, Sk)
+        fn = L.attention_blockwise if Sk >= L.BLOCKWISE_FROM else L.attention_scores
+        if TP.attn_split(cfg.n_heads, (B, Sq, cfg.n_heads, cfg.head_dim)):
+            return L.attention_split(p, x, kv, cfg.attn_cfg(False), pos_q, pos_k, fn), None
+        p = TP.whole_tree(p)
     q = torch.einsum("bsm,mhd->bshd", x, p["wq"].to(x.dtype))
     if precomputed is None:
         k = torch.einsum("bsm,mhd->bshd", kv, p["wk"].to(x.dtype))

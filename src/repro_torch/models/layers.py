@@ -8,10 +8,14 @@ the reference's, which ``train/sharding.py`` resolves on a mesh.  Attention cove
 windows and MLA; sequences of 2,048 and more take a blockwise
 (online-softmax) path, as in the reference.
 
-The reference's ``repro.train.sharding.constrain`` calls are left out: a
-data group of the SPMD train step computes with whole weights and
-activations on its device (the port's ``train/sharding.py::constrain``
-checks its spec and returns its input).  Two choices differ from the reference by
+Where the reference calls ``repro.train.sharding.constrain``, the port
+splits the product over the "model" positions of a data group when the
+SPMD train step has installed one (``train/tp.py``): attention by heads or
+by query sequence (``seq_sharded``), MLA by heads, the MLP by columns, the
+sorted MoE by experts, and the embedding, the logits and the loss by
+vocabulary rows.  The residual stream and the norms stay whole on the
+group's first position.  Without a group every function computes whole,
+as before.  Two choices differ from the reference by
 design: a KV cache passed to :func:`attention` or :func:`mla_attention` is
 written in place and returned (the reference threads a new one), and the
 slot arithmetic stays on the device, so no layer reads the cache length
@@ -31,6 +35,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from repro_torch.train import tp as TP
 
 #: Key positions at or past this are invalid (padded / unwritten slots).
 INVALID_POS = 2**29
@@ -73,7 +79,7 @@ class ParamInit:
 
 
 def _records_grad(tree) -> bool:
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, TP.Split)):
         return tree.requires_grad
     if isinstance(tree, dict):
         return any(_records_grad(v) for v in tree.values())
@@ -89,9 +95,24 @@ def remat(fn, *args):
     (nested dicts included) requires a gradient.  Serving, the captured
     decode and ``no_grad`` calls run ``fn`` plainly."""
     if torch.is_grad_enabled() and _records_grad(args):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                                 preserve_rng_state=False)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(), _recompute()))
     return fn(*args)
+
+
+#: How many :func:`remat` recomputes are running (the dry run reads it).
+RECOMPUTING = 0
+
+
+@contextlib.contextmanager
+def _recompute():
+    global RECOMPUTING
+    RECOMPUTING += 1
+    try:
+        yield
+    finally:
+        RECOMPUTING -= 1
 
 
 def make_param(key: ParamInit, shape, axes):
@@ -314,17 +335,15 @@ def attention(p, x, cfg: AttnConfig, positions, cache=None, blockwise=None):
     as the second result (None without a cache).
     """
     B, S, M = x.shape
-    q = torch.einsum("bsm,mhd->bshd", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsm,mkd->bskd", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsm,mkd->bskd", x, p["wv"].to(x.dtype))
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = rope(q, positions, cfg.rope_base)
-    k = rope(k, positions, cfg.rope_base)
     use_block = blockwise if blockwise is not None else S >= BLOCKWISE_FROM
     fn = attention_blockwise if use_block else attention_scores
+    if TP.active() is not None:
+        if cache is None and TP.attn_split(cfg.n_heads, (B, S, cfg.n_heads, cfg.head_dim)):
+            return attention_split(p, x, x, cfg, positions, positions, fn, cfg.rope_base), None
+        p = TP.whole_tree(p)
+    q, k, v = (_project(x, p[f"w{n}"], p[f"b{n}"] if cfg.qkv_bias else None) for n in "qkv")
+    q = rope(q, positions, cfg.rope_base)
+    k = rope(k, positions, cfg.rope_base)
 
     if cache is None:
         out = fn(q, k, v, positions, positions, cfg)
@@ -378,6 +397,98 @@ def attention(p, x, cfg: AttnConfig, positions, cache=None, blockwise=None):
     return torch.einsum("bshd,hdm->bsm", out, p["wo"].to(x.dtype)), cache
 
 
+def _project(x, w, b=None):
+    y = torch.einsum("bsm,mhd->bshd", x, w.to(x.dtype))
+    return y if b is None else y + b.to(x.dtype)
+
+
+def _kv_for_heads(k, v, h0, Hm, G):
+    """The kv heads that query heads ``[h0, h0 + Hm)`` read (``G`` query
+    heads a kv head) and their count: a slice when the query heads cover
+    whole kv groups, else one kv head a query head."""
+    if Hm % G == 0:
+        sl = slice(h0 // G, (h0 + Hm) // G)
+        return k[:, :, sl], v[:, :, sl], Hm // G
+    idx = torch.arange(h0, h0 + Hm, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx], Hm
+
+
+def attention_split(p, xq, xkv, cfg: AttnConfig, q_pos, k_pos, fn, rope_base=None):
+    """Attention without a cache, split over the active group's positions
+    as the reference constrains q, k and v (``attn_axes``): by query heads
+    when the heads divide the "model" axis (k and v by kv heads where those
+    divide too, else computed whole and each position reads its heads'),
+    else by sequence (``seq_sharded``: each position projects its slice,
+    k and v are gathered, its queries attend to all keys).  Self-attention
+    (``rope_base`` set, ``xkv is xq``) or cross-attention.  Row-split
+    output projections are summed in position order."""
+    g = TP.active()
+    B, S, _ = xq.shape
+    Sk = xkv.shape[1]
+    H, K, D, M = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, g.M
+
+    def rot(t, pos):
+        return t if rope_base is None else rope(t, pos, rope_base)
+
+    def leaf(tree, name, cut=None):
+        """``tree[name]`` (``None`` for a bias the config has not), whole or
+        as position ``cut = (dim, m)``'s block."""
+        if name[0] == "b" and not cfg.qkv_bias:
+            return None
+        return TP.whole(tree[name]) if cut is None else TP.block(tree[name], cut[0], cut[1], M)
+
+    if TP.attn_split(H, (B, S, H, D)) == 2:  # heads
+        Hm = H // M
+        kv_split = TP.model_dim((B, Sk, K, D), ("batch", None, "heads", None)) == 2
+        if not kv_split:
+            k_all = rot(_project(xkv, leaf(p, "wk"), leaf(p, "bk")), k_pos)
+            v_all = _project(xkv, leaf(p, "wv"), leaf(p, "bv"))
+        partial = []
+        for m in range(M):
+            with g.at(m) as dev:
+                xm, qp, kp = xq.to(dev), q_pos.to(dev), k_pos.to(dev)
+                q = rot(_project(xm, leaf(p, "wq", (1, m)), leaf(p, "bq", (0, m))), qp)
+                if kv_split:
+                    xk = xkv.to(dev)
+                    k = rot(_project(xk, leaf(p, "wk", (1, m)), leaf(p, "bk", (0, m))), kp)
+                    v = _project(xk, leaf(p, "wv", (1, m)), leaf(p, "bv", (0, m)))
+                    Km = K // M
+                else:
+                    k, v, Km = _kv_for_heads(k_all.to(dev), v_all.to(dev), m * Hm, Hm, H // K)
+                out = fn(q, k, v, qp, kp, dataclasses.replace(cfg, n_heads=Hm, n_kv_heads=Km))
+                wo = leaf(p, "wo", (0, m))
+                partial.append(torch.einsum("bshd,hdm->bsm", out, wo.to(out.dtype)))
+        return TP.psum(partial)
+
+    # seq_sharded: the heads do not divide the "model" axis
+    w = {name: leaf(p, name) for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")}
+
+    def proj(x, name, bname, dev):
+        return _project(x, w[name].to(dev), None if w[bname] is None else w[bname].to(dev))
+
+    qs = []
+    for m, (lo, hi) in enumerate(TP.shares(S, M)):
+        with g.at(m) as dev:
+            qs.append(rot(proj(xq[:, lo:hi].to(dev), "wq", "bq", dev), q_pos[:, lo:hi].to(dev)))
+    if TP.model_dim((B, Sk, K, D), ("batch", "seq_sharded", None, None)) == 1:
+        ks, vs = [], []
+        for m, (lo, hi) in enumerate(TP.shares(Sk, M)):
+            with g.at(m) as dev:
+                xk = xkv[:, lo:hi].to(dev)
+                ks.append(rot(proj(xk, "wk", "bk", dev), k_pos[:, lo:hi].to(dev)))
+                vs.append(proj(xk, "wv", "bv", dev))
+        k, v = TP.gather(ks, 1), TP.gather(vs, 1)
+    else:
+        k = rot(proj(xkv, "wk", "bk", g.home), k_pos)
+        v = proj(xkv, "wv", "bv", g.home)
+    ys = []
+    for m, (lo, hi) in enumerate(TP.shares(S, M)):
+        with g.at(m) as dev:
+            out = fn(qs[m], k.to(dev), v.to(dev), q_pos[:, lo:hi].to(dev), k_pos.to(dev), cfg)
+            ys.append(torch.einsum("bshd,hdm->bsm", out, w["wo"].to(device=dev, dtype=out.dtype)))
+    return TP.gather(ys, 1)
+
+
 # ---------------------------------------------------------------------------
 # MLA (deepseek-v2): compressed KV cache attention
 # ---------------------------------------------------------------------------
@@ -415,6 +526,11 @@ def mla_attention(p, x, cfg: MLAConfig, positions, cache=None):
     ``jax.lax.dynamic_update_slice`` clamps) and returned."""
     B, S, M = x.shape
     H, R = cfg.n_heads, cfg.kv_lora_rank
+    if TP.active() is not None:
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        if cache is None and TP.attn_split(H, (B, S, H, qd)):
+            return mla_split(p, x, cfg, positions), None
+        p = TP.whole_tree(p)
     q = torch.einsum("bsm,mhd->bshd", x, p["wq"].to(x.dtype))
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
     q_rope = rope(q_rope, positions, cfg.rope_base)
@@ -475,20 +591,74 @@ def mla_attention(p, x, cfg: MLAConfig, positions, cache=None):
             w = w * cscale[:, None, None, :].to(x.dtype)
         ctx = torch.einsum("bhqs,bsr->bqhr", w, c_mat)
         out = torch.einsum("bqhr,rhd->bqhd", ctx, p["wuv"].to(x.dtype))
-    elif S >= BLOCKWISE_FROM:
-        out = _mla_blockwise(p, q_nope, q_rope, c, k_rope, positions, k_pos, cfg, scale, x.dtype)
     else:
-        k_nope = torch.einsum("bsr,rhd->bshd", c, p["wuk"].to(x.dtype))
-        vv = torch.einsum("bsr,rhd->bshd", c, p["wuv"].to(x.dtype))
-        logits = (
-            torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
-            + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope.to(x.dtype))
-        ).float() * scale
-        logits = logits + _mask_bias(positions, k_pos, 0, torch.float32)[:, None]
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqs,bshd->bqhd", w, vv)
+        out = _mla_core(p, q_nope, q_rope, c, k_rope, positions, k_pos, cfg, scale, x.dtype,
+                        S >= BLOCKWISE_FROM)
     y = torch.einsum("bqhd,hdm->bqm", out, p["wo"].to(x.dtype))
     return y, cache
+
+
+def _mla_core(p, q_nope, q_rope, c, k_rope, q_pos, k_pos, cfg, scale, dtype, blockwise):
+    """MLA over expanded keys and values (train and prefill): blockwise, or
+    with the scores materialised.  ``p`` holds ``wuk`` and ``wuv`` for the
+    query heads given."""
+    if blockwise:
+        return _mla_blockwise(p, q_nope, q_rope, c, k_rope, q_pos, k_pos, cfg, scale, dtype)
+    k_nope = torch.einsum("bsr,rhd->bshd", c, p["wuk"].to(dtype))
+    vv = torch.einsum("bsr,rhd->bshd", c, p["wuv"].to(dtype))
+    logits = (
+        torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
+        + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope.to(dtype))
+    ).float() * scale
+    logits = logits + _mask_bias(q_pos, k_pos, 0, torch.float32)[:, None]
+    w = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqs,bshd->bqhd", w, vv)
+
+
+def mla_split(p, x, cfg: MLAConfig, positions):
+    """MLA without a cache, split over the active group's positions as the
+    reference constrains ``q_nope`` and ``q_rope`` (``attn_axes``): by
+    heads (each position's query, key and value heads from its blocks of
+    ``wq``, ``wuk`` and ``wuv``, its rows of ``wo``; partial outputs summed
+    in position order), else by query sequence.  The latent ``c`` and the
+    rope key (``wdkv``, held whole) are computed once."""
+    g = TP.active()
+    B, S, _ = x.shape
+    H, R, M = cfg.n_heads, cfg.kv_lora_rank, g.M
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    ckv = torch.einsum("bsm,mr->bsr", x, TP.whole(p["wdkv"]).to(x.dtype))
+    c, k_rope = ckv[..., :R].to(x.dtype), ckv[..., R:]
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_base)[:, :, 0]
+    scale = 1.0 / math.sqrt(qd)
+    blockwise = S >= BLOCKWISE_FROM
+
+    def query(xm, wq, pos):
+        q = torch.einsum("bsm,mhd->bshd", xm, wq.to(x.dtype))
+        return q[..., : cfg.qk_nope_dim], rope(q[..., cfg.qk_nope_dim :], pos, cfg.rope_base)
+
+    if TP.attn_split(H, (B, S, H, qd)) == 2:  # heads
+        partial = []
+        for m in range(M):
+            with g.at(m) as dev:
+                pm = {k: TP.block(p[k], 1, m, M) for k in ("wq", "wuk", "wuv")}
+                pos = positions.to(dev)
+                qn, qr = query(x.to(dev), pm["wq"], pos)
+                out = _mla_core(pm, qn, qr, c.to(dev), k_rope.to(dev), pos, pos, cfg, scale,
+                                x.dtype, blockwise)
+                wo = TP.block(p["wo"], 0, m, M)
+                partial.append(torch.einsum("bqhd,hdm->bqm", out, wo.to(x.dtype)))
+        return TP.psum(partial)
+    w = TP.whole_tree(p)
+    ys = []
+    for m, (lo, hi) in enumerate(TP.shares(S, M)):
+        with g.at(m) as dev:
+            pos = positions[:, lo:hi].to(dev)
+            qn, qr = query(x[:, lo:hi].to(dev), w["wq"].to(dev), pos)
+            pm = {k: w[k].to(dev) for k in ("wuk", "wuv")}
+            out = _mla_core(pm, qn, qr, c.to(dev), k_rope.to(dev), pos, positions.to(dev), cfg,
+                            scale, x.dtype, blockwise)
+            ys.append(torch.einsum("bqhd,hdm->bqm", out, w["wo"].to(device=dev, dtype=x.dtype)))
+    return TP.gather(ys, 1)
 
 
 def _mla_blockwise(p, q_nope, q_rope, c, k_rope, q_pos, k_pos, cfg, scale, dtype,
@@ -551,6 +721,24 @@ _ACT = {
 
 
 def mlp(p, x, act="silu"):
+    """The MLP; under a group whose "model" axis divides its hidden width,
+    each position computes its columns of ``wi``/``wg`` and its rows of
+    ``wo``, and the partial outputs are summed in position order."""
+    g = TP.active()
+    if g is not None:
+        B, S, _ = x.shape
+        if TP.model_dim((B, S, p["wi"].shape[-1]), ("batch", None, "mlp")) == 2:
+            partial = []
+            for m in range(g.M):
+                with g.at(m) as dev:
+                    pm = {k: TP.block(w, 0 if k == "wo" else 1, m, g.M) for k, w in p.items()}
+                    partial.append(_mlp(pm, x.to(dev), act))
+            return TP.psum(partial)
+        p = TP.whole_tree(p)
+    return _mlp(p, x, act)
+
+
+def _mlp(p, x, act):
     h = torch.einsum("bsm,mf->bsf", x, p["wi"].to(x.dtype))
     if "wg" in p:
         g = torch.einsum("bsm,mf->bsf", x, p["wg"].to(x.dtype))
@@ -619,16 +807,28 @@ def expert_shares(record: list | None = None, table: dict | None = None):
 
 def _expert_shares(router, counts, n_slots):
     record, table = _SHARES or (None, None)
+    key = (router.parts[0] if isinstance(router, TP.Split) else router).data_ptr()
     if record is not None:
-        record.append((router.data_ptr(), counts, n_slots))
+        record.append((key, counts, n_slots))
     if table is not None:
-        return table[router.data_ptr()]
+        return table[key]
     return counts / n_slots
 
 
 def _route(p, x, cfg: MoEConfig):
-    """Router probabilities (fp32) and the renormalised top-k gates."""
-    logits = torch.einsum("bsm,me->bse", x, p["router"].to(x.dtype))
+    """Router probabilities (fp32) and the renormalised top-k gates.  Under
+    a group that splits the experts, each position computes its experts'
+    logits and they are gathered: routing stays global."""
+    router = p["router"]
+    g = TP.active()
+    if g is not None and isinstance(router, TP.Split) and router.dim == 1:
+        parts = []
+        for m in range(g.M):
+            with g.at(m) as dev:
+                parts.append(torch.einsum("bsm,me->bse", x.to(dev), router.parts[m].to(x.dtype)))
+        logits = TP.gather(parts, 2)
+    else:
+        logits = torch.einsum("bsm,me->bse", x, TP.whole(router).to(x.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     gate, eidx = torch.topk(probs, cfg.top_k, dim=-1)  # [B,S,K], descending
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -676,11 +876,17 @@ def moe_sorted(p, x, cfg: MoEConfig):
     buf.scatter_(1, dst[..., None].expand(B, N, M), tok_sorted)
     ebuf = buf[:, :overflow].reshape(B, E, cap, M)
 
-    h = torch.einsum("becm,emf->becf", ebuf, p["wi"].to(x.dtype))
-    g = torch.einsum("becm,emf->becf", ebuf, p["wg"].to(x.dtype))
-    h = _ACT[cfg.act](g) * h
-    out = torch.einsum("becf,efm->becm", h, p["wo"].to(x.dtype)).reshape(B, overflow, M)
-    out = torch.cat([out, x.new_zeros((B, 1, M))], dim=1)
+    grp = TP.active()
+    if grp is not None and TP.model_dim((B, E, cap, M), ("batch", "expert", None, None)) == 1:
+        outs = []  # expert parallel: each position runs its experts' slots
+        for m, (lo, hi) in enumerate(TP.shares(E, grp.M)):
+            with grp.at(m) as dev:
+                pm = {k: TP.block(p[k], 0, m, grp.M) for k in ("wi", "wg", "wo")}
+                outs.append(_experts(pm, ebuf[:, lo:hi].to(dev), cfg, x.dtype))
+        out = TP.gather(outs, 1)
+    else:
+        out = _experts(TP.whole_tree({k: p[k] for k in ("wi", "wg", "wo")}), ebuf, cfg, x.dtype)
+    out = torch.cat([out.reshape(B, overflow, M), x.new_zeros((B, 1, M))], dim=1)
 
     # un-sort with one gather: slot of (token, k) = dst[inv]
     inv = torch.argsort(order, dim=1, stable=True)
@@ -701,9 +907,20 @@ def moe_sorted(p, x, cfg: MoEConfig):
     return y, aux
 
 
+def _experts(p, ebuf, cfg: MoEConfig, dtype):
+    """The gated expert FFNs over their slot buffers ``[B, E, cap, M]``."""
+    h = torch.einsum("becm,emf->becf", ebuf, p["wi"].to(dtype))
+    g = torch.einsum("becm,emf->becf", ebuf, p["wg"].to(dtype))
+    h = _ACT[cfg.act](g) * h
+    return torch.einsum("becf,efm->becm", h, p["wo"].to(dtype))
+
+
 def moe_dense(p, x, cfg: MoEConfig):
     """Dense one-hot dispatch (every expert sees every token, masked):
-    FLOP-heavy; the reference for the sorted dispatch."""
+    FLOP-heavy; the reference for the sorted dispatch.  Under a group it
+    computes whole."""
+    if TP.active() is not None:
+        p = TP.whole_tree(p)
     E = cfg.n_experts
     probs, gate, eidx = _route(p, x, cfg)
     mask = torch.zeros(x.shape[:2] + (E,), dtype=torch.float32, device=x.device)
@@ -733,21 +950,85 @@ def init_embed(key: ParamInit, vocab, d_model, pad_to=256):
     return {"table": make_param(key, (vpad, d_model), ("vocab", "embed"))}
 
 
+def _vocab_split(t, lead) -> bool:
+    """Whether the active group splits activations over the vocabulary
+    ``("batch", None, "vocab")`` of table ``t``; ``lead`` is ``(B, S)``."""
+    return TP.model_dim(tuple(lead) + (t.shape[0],), ("batch", None, "vocab")) == 2
+
+
 def embed(p, tokens, scale=False):
+    """Rows of the table; under a group that splits the vocabulary, each
+    position looks up the tokens among its rows (zeros for the rest) and
+    the rows are summed in position order."""
     t = p["table"]
-    x = t[tokens]
+    g = TP.active()
+    if g is not None and _vocab_split(t, tokens.shape[:2]):
+        rows = []
+        for m, (lo, hi) in enumerate(TP.shares(t.shape[0], g.M)):
+            with g.at(m) as dev:
+                local = tokens.to(dev).long() - lo
+                ok = (local >= 0) & (local < hi - lo)
+                r = TP.block(t, 0, m, g.M)[local.clamp(0, hi - lo - 1)]
+                rows.append(torch.where(ok[..., None], r, torch.zeros((), dtype=r.dtype,
+                                                                     device=dev)))
+        x = TP.psum(rows)
+    else:
+        x = TP.whole(t)[tokens]
     if scale:
         x = x * math.sqrt(t.shape[1])
     return x
 
 
-def unembed_logits(p, x, softcap=0.0, true_vocab=None):
-    logits = torch.einsum("bsm,vm->bsv", x, p["table"].to(x.dtype))
+def _masked_logits(table, x, softcap, true_vocab, start):
+    """``x`` against vocabulary rows ``[start, start + n)`` of the table
+    (``table`` holds those n rows): float32, softcapped, the padded rows
+    past ``true_vocab`` at -1e30."""
+    logits = torch.einsum("bsm,vm->bsv", x, table.to(x.dtype))
     logits = _softcap(logits.float(), softcap)
-    vpad = p["table"].shape[0]
-    if true_vocab is not None and true_vocab < vpad:
-        logits[..., true_vocab:] = -1e30
+    if true_vocab is not None and true_vocab < start + table.shape[0]:
+        logits[..., max(0, true_vocab - start):] = -1e30
     return logits
+
+
+def _logit_parts(p, x, softcap, true_vocab) -> list:
+    """Each position's ``(first row, logits)`` over its vocabulary rows."""
+    g = TP.active()
+    out = []
+    for m, (lo, hi) in enumerate(TP.shares(p["table"].shape[0], g.M)):
+        with g.at(m) as dev:
+            out.append((lo, _masked_logits(TP.block(p["table"], 0, m, g.M), x.to(dev),
+                                           softcap, true_vocab, lo)))
+    return out
+
+
+def unembed_logits(p, x, softcap=0.0, true_vocab=None):
+    if TP.active() is not None and _vocab_split(p["table"], x.shape[:2]):
+        return TP.gather([lg for _, lg in _logit_parts(p, x, softcap, true_vocab)], 2)
+    return _masked_logits(TP.whole(p["table"]), x, softcap, true_vocab, 0)
+
+
+def _split_xent_sum(p_embed, x, labels, mask, softcap, true_vocab):
+    """The masked sum of ``logsumexp - gold`` over vocabulary-split logits:
+    the max and the sum of exponentials are combined over the positions in
+    position order, and so is the gold logit (from the position holding
+    the label's row; the rest add zero)."""
+    g = TP.active()
+    parts = _logit_parts(p_embed, x, softcap, true_vocab)
+    mx = None
+    for _, lg in parts:
+        cur = lg.detach().amax(dim=-1).to(g.home)
+        mx = cur if mx is None else torch.maximum(mx, cur)
+    TP.note("all-reduce", mx)
+    sums, golds = [], []
+    for m, (lo, lg) in enumerate(parts):
+        with g.at(m) as dev:
+            sums.append(torch.exp(lg - mx.to(dev)[..., None]).sum(dim=-1))
+            local = labels.to(dev).long() - lo
+            ok = (local >= 0) & (local < lg.shape[-1])
+            gold = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+            golds.append(torch.where(ok, gold, torch.zeros((), dtype=gold.dtype, device=dev)))
+    logz = mx + torch.log(TP.psum(sums))
+    return ((logz - TP.psum(golds)) * mask).sum()
 
 
 def chunked_softmax_xent(p_embed, x, labels, softcap=0.0, chunk=512, mask=None, true_vocab=None):
@@ -767,6 +1048,8 @@ def chunked_softmax_xent(p_embed, x, labels, softcap=0.0, chunk=512, mask=None, 
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def step(p_embed, xc, lc, mc):
+        if TP.active() is not None and _vocab_split(p_embed["table"], xc.shape[:2]):
+            return _split_xent_sum(p_embed, xc, lc, mc, softcap, true_vocab)
         logits = unembed_logits(p_embed, xc, softcap, true_vocab=true_vocab)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]

@@ -3,9 +3,10 @@
 Port of ``src/repro/models/ssm.py``.  Training/prefill uses the chunked
 SSD algorithm (intra-chunk quadratic + inter-chunk state recurrence, a
 loop over chunks where the reference scans); decode is the O(1)
-recurrent update.  The reference's sharding hints (``constrain``) are left
-out: on one card they are no-ops, and its ``jax.checkpoint`` is a no-op
-for inference.
+recurrent update.  Where the reference constrains the heads
+(``constrain(..., "mamba_heads")``), a data group of the SPMD train step
+splits a block over its "model" positions by heads (``train/tp.py``,
+:func:`mamba2_split`); without a group a block computes whole.
 
 A decode state passed to :func:`mamba2_forward` (or to
 :func:`mamba2_lm_decode`) is written in place and returned, as the
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _stacked_init, _take, _unstack
+from repro_torch.train import tp as TP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +159,10 @@ def mamba2_forward(p, u, cfg: Mamba2Config, state=None):
     written in place and returned.  Returns (y, new_state_or_None)."""
     B, S, M = u.shape
     Din, H, G, N, P = cfg.d_inner, cfg.n_heads, cfg.n_groups, cfg.d_state, cfg.headdim
+    if TP.active() is not None and state is None:
+        if TP.model_dim((B, S, H, P), ("batch", None, "mamba_heads", None)) == 2:
+            return mamba2_split(p, u, cfg), None
+        p = TP.whole_tree(p)
     zxbcdt = torch.einsum("bsm,md->bsd", u, p["w_in"].to(u.dtype))
     z, xbc, dt_raw = torch.split(zxbcdt, [Din, cfg.conv_dim, H], dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [B,S,H]
@@ -168,11 +174,7 @@ def mamba2_forward(p, u, cfg: Mamba2Config, state=None):
     else:
         xbc_pad = torch.cat([state["conv"].to(u.dtype), xbc], dim=1)
         state["conv"].copy_(xbc_pad[:, -(cfg.conv_width - 1):])
-    # causal depthwise conv as W shifted scaled adds (no W-x window copy)
-    acc = xbc_pad[:, 0:S] * w[0]
-    for j in range(1, cfg.conv_width):
-        acc = acc + xbc_pad[:, j : j + S] * w[j]
-    xbc = F.silu(acc + p["conv_b"].to(u.dtype))
+    xbc = _conv(xbc_pad, w, p["conv_b"].to(u.dtype), S)
 
     x, b, c = torch.split(xbc, [Din, G * N, G * N], dim=-1)
     x = x.reshape(B, S, H, P)
@@ -195,6 +197,71 @@ def mamba2_forward(p, u, cfg: Mamba2Config, state=None):
     y = L.rmsnorm(p["norm"], y * F.silu(z))
     out = torch.einsum("bsd,dm->bsm", y, p["w_out"].to(u.dtype))
     return out, state
+
+
+def _conv(xbc_pad, w, bias, S):
+    """Causal depthwise conv as W shifted scaled adds (no W-x window copy),
+    then the bias and SiLU; ``xbc_pad`` holds ``W - 1`` steps before the
+    ``S`` it outputs."""
+    acc = xbc_pad[:, 0:S] * w[0]
+    for j in range(1, w.shape[0]):
+        acc = acc + xbc_pad[:, j : j + S] * w[j]
+    return F.silu(acc + bias)
+
+
+def mamba2_split(p, u, cfg: Mamba2Config):
+    """A Mamba2 block without a state, split over the active group's
+    positions by heads, as the reference constrains ``x`` and the chunks
+    (``"mamba_heads"``).  ``w_in``'s columns are packed ``[z | x | B | C |
+    dt]`` and stored cut evenly over "model", across those blocks; each
+    position cuts its compute layout from the stored parts (its heads' z,
+    x and dt columns, its x channels of ``conv_w``/``conv_b``), in position
+    order.  B and C (one group: every head reads them) are projected and
+    convolved once.  The gated RMSNorm over ``d_inner`` sums the positions'
+    squares in position order; the row-split ``w_out`` products are summed
+    so too."""
+    g = TP.active()
+    B, S, _ = u.shape
+    Din, H, G, N, P, W = cfg.d_inner, cfg.n_heads, cfg.n_groups, cfg.d_state, cfg.headdim, \
+        cfg.conv_width
+    M, dt = g.M, u.dtype
+    Hm = H // M
+    Dm, GN = Hm * P, G * N
+    bc_cols = [(2 * Din, 2 * Din + 2 * GN)]
+    w_bc = TP.take(p["w_in"], -1, bc_cols, g.home)
+    bc = torch.einsum("bsm,md->bsd", u, w_bc.to(dt))
+    conv_bc = [(Din, Din + 2 * GN)]
+    pad = u.new_zeros((B, W - 1, 2 * GN))
+    bc = _conv(torch.cat([pad, bc], dim=1), TP.take(p["conv_w"], -1, conv_bc, g.home).to(dt),
+               TP.take(p["conv_b"], -1, conv_bc, g.home).to(dt), S)
+    b = bc[..., :GN].reshape(B, S, G, N).float()
+    c = bc[..., GN:].reshape(B, S, G, N).float()
+    gated, squares = [], []
+    for m in range(M):
+        with g.at(m) as dev:
+            z0, x0, d0 = m * Dm, Din + m * Dm, 2 * Din + 2 * GN + m * Hm
+            w = TP.take(p["w_in"], -1, [(z0, z0 + Dm), (x0, x0 + Dm), (d0, d0 + Hm)], dev)
+            z, x, dt_raw = torch.split(torch.einsum("bsm,md->bsd", u.to(dev), w.to(dt)),
+                                       [Dm, Dm, Hm], dim=-1)
+            dtm = F.softplus(dt_raw.float() + TP.block(p["dt_bias"], 0, m, M))
+            ch = [(m * Dm, (m + 1) * Dm)]
+            x = _conv(torch.cat([u.new_zeros((B, W - 1, Dm), device=dev), x], dim=1),
+                      TP.take(p["conv_w"], -1, ch, dev).to(dt),
+                      TP.take(p["conv_b"], -1, ch, dev).to(dt), S).reshape(B, S, Hm, P)
+            y, _ = ssd_chunked(x.float(), dtm, TP.block(p["a_log"], 0, m, M), b.to(dev),
+                               c.to(dev), cfg.chunk)
+            y = y + x.float() * TP.block(p["d_skip"], 0, m, M)[None, None, :, None]
+            gz = y.reshape(B, S, Dm).to(dt) * F.silu(z)
+            gated.append(gz)
+            squares.append(gz.float().square().sum(-1, keepdim=True))
+    rms = torch.rsqrt(TP.psum(squares) / Din + 1e-6)
+    partial = []
+    for m in range(M):
+        with g.at(m) as dev:
+            scale = TP.block(p["norm"]["scale"], 0, m, M) + 1.0
+            yn = (gated[m].float() * rms.to(dev) * scale).to(dt)
+            partial.append(torch.einsum("bsd,dm->bsm", yn, TP.block(p["w_out"], 0, m, M).to(dt)))
+    return TP.psum(partial)
 
 
 def init_mamba2_state(cfg: Mamba2Config, batch, dtype=torch.float32, device="cuda", lead=()):

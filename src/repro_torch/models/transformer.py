@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.train import tp as TP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,6 +263,8 @@ def _unstack(tree, n) -> list:
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, TP.Split):
+        return tree.unbind()
     return list(torch.unbind(tree))
 
 

@@ -20,13 +20,19 @@ tensor per mesh position, on that position's device, whether or not two
 positions name one device (as forced host devices hold separate buffers).
 The collectives are plain functions over placed leaves, each run by the
 one controller in position order, so their bits do not depend on
-scheduling: :func:`gather` (all-gather), :func:`reshard` (what
-:func:`unfsdp_params` and :func:`refsdp_params` do to placed leaves) and
+scheduling: :func:`gather_block` (a block built on a device from the
+stored blocks that meet it), :func:`gather` (all-gather), :func:`reshard`
+(what :func:`unfsdp_params` and :func:`refsdp_params` do to placed leaves;
+each position's new block is built on its own device) and
 :func:`reduce_scatter`.  The train step that uses them is
-``configs/common.py::ArchSpec.make_train_step``; it runs each data group
-(:func:`batch_groups`, :func:`group_devices`) with whole weights, so the
-activations are whole within a group and :func:`constrain` checks its spec
-and returns its input.
+``configs/common.py::ArchSpec.make_train_step``: each data group
+(:func:`batch_groups`, :func:`group_positions`) computes over its
+"model" positions with the blocks of :func:`compute_sharding`, splitting
+its products there (``train/tp.py``), and the gradients go back to the
+positions' shards by the plan of :func:`grad_sources` and
+:func:`reduce_scatter_plan`, a plain function of the mesh.
+:func:`constrain` checks its spec and returns its input: the model code
+splits at the reference's constrain sites itself.
 """
 from __future__ import annotations
 
@@ -233,27 +239,153 @@ def reduce_scatter(whole: torch.Tensor, sharding: NamedSharding) -> Sharded:
     return Sharded(whole.shape, whole.dtype, sharding, shards)
 
 
+def region(index, shape) -> tuple:
+    """A tuple of slices as ``(start, stop)`` per dim of ``shape``."""
+    return tuple(s.indices(n)[:2] for s, n in zip(index, shape))
+
+
+def overlap(a: tuple, b: tuple):
+    """The part of region ``b`` inside region ``a``, as slices relative to
+    ``a`` and to ``b``; ``None`` when they do not meet."""
+    rel_a, rel_b = [], []
+    for (a0, a1), (b0, b1) in zip(a, b):
+        lo, hi = max(a0, b0), min(a1, b1)
+        if lo >= hi and (a1 > a0 or b1 > b0):
+            return None
+        rel_a.append(slice(lo - a0, hi - a0))
+        rel_b.append(slice(lo - b0, hi - b0))
+    return tuple(rel_a), tuple(rel_b)
+
+
+def gather_block(x, index, device) -> torch.Tensor:
+    """``x[index]`` on ``device``: each distinct stored block that meets
+    it copied there once, in position order, from the first position that
+    holds it (a gather over the axes ``index`` does not split).  A plain
+    tensor is cut and moved."""
+    if not isinstance(x, Sharded):
+        return x[index].to(device)
+    want = region(index, x.shape)
+    out = torch.empty(tuple(b - a for a, b in want), dtype=x.dtype, device=device)
+    for have, pos in _holders(x.sharding, tuple(x.shape)).items():
+        hit = overlap(want, have)
+        if hit is not None:
+            out[hit[0]].copy_(x.shards[pos][hit[1]])
+    return out
+
+
+def _holders(sharding: NamedSharding, shape: tuple) -> dict:
+    """Each distinct stored block (its region) -> the first position, in
+    position order, that holds it (kept on the sharding, by shape)."""
+    tables = sharding.__dict__.setdefault("_holders", {})
+    if shape not in tables:
+        table = {}
+        for pos in positions(sharding.mesh):
+            table.setdefault(region(sharding.shard_index(pos, shape), shape), pos)
+        tables[shape] = table
+    return tables[shape]
+
+
 def gather(x, device) -> torch.Tensor:
     """The whole of ``x`` on ``device`` (an all-gather): each distinct
     block copied once, from the first position that holds it.  A plain
     tensor is moved there."""
-    if not isinstance(x, Sharded):
-        return x.to(device)
-    out = torch.empty(tuple(x.shape), dtype=x.dtype, device=device)
-    seen = set()
-    for pos in positions(x.sharding.mesh):
-        index = x.sharding.shard_index(pos, x.shape)
-        key = tuple((s.start, s.stop) for s in index)
-        if key not in seen:
-            seen.add(key)
-            out[index].copy_(x.shards[pos])
-    return out
+    return gather_block(x, (slice(None),) * len(x.shape), device)
 
 
 def reshard(x: Sharded, sharding: NamedSharding) -> Sharded:
-    """``x`` placed by another sharding on its mesh: gathered whole on the
-    first position's device, then cut into each position's block."""
-    return reduce_scatter(gather(x, sharding.mesh.devices.flat[0]), sharding)
+    """``x`` placed by another sharding on its mesh: each position's new
+    block built on its own device from the stored blocks that meet it
+    (no device gathers the whole)."""
+    mesh = sharding.mesh
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    for pos in positions(mesh):
+        shards[pos] = gather_block(x, sharding.shard_index(pos, x.shape), mesh.devices[pos])
+    return Sharded(x.shape, x.dtype, sharding, shards)
+
+
+def compute_sharding(sharding: NamedSharding) -> NamedSharding:
+    """What a position computes with once the batch axes' factor of its
+    params is gathered (the reference's ``unfsdp_params``): the spec with
+    only its "model" entries left."""
+    def keep(entry):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        kept = tuple(a for a in names if a == "model")
+        return None if not kept else kept[0]
+
+    return NamedSharding(sharding.mesh, P(*(None if e is None else keep(e)
+                                            for e in sharding.spec)))
+
+
+def model_split_dim(sharding: NamedSharding) -> int | None:
+    """The dim that "model" splits under ``sharding`` (``None``: held
+    whole over "model", or a "model" axis of one)."""
+    if sharding.mesh.shape.get("model", 1) == 1:
+        return None
+    return model_entry(sharding.spec)
+
+
+def model_entry(spec) -> int | None:
+    """The index of the entry of ``spec`` that names "model", if any."""
+    for i, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+            return i
+    return None
+
+
+def group_positions(mesh: Mesh, axes) -> list:
+    """For each data group (the batch split over ``axes`` in row-major
+    order), its positions along "model", in order: the group's coordinate
+    on ``axes``, 0 on every other axis but "model"."""
+    sizes = mesh.shape
+    G = math.prod(sizes[a] for a in axes)
+    out = []
+    for g in range(G):
+        coords, rest = {}, g
+        for a in reversed(axes):
+            coords[a] = rest % sizes[a]
+            rest //= sizes[a]
+        out.append([tuple(m if a == "model" else coords.get(a, 0) for a in mesh.axis_names)
+                    for m in range(sizes.get("model", 1))])
+    return out
+
+
+def grad_sources(sharding: NamedSharding, shape, groups, group_devs) -> list:
+    """The gradient blocks of one leaf that devices accumulate in a step:
+    ``(region, device)`` pairs, each a block of the leaf as the positions
+    compute with it (:func:`compute_sharding`) summed over the groups that
+    ``device`` runs, in group then position order.  ``groups[g]`` are
+    group ``g``'s positions along "model" and ``group_devs[g]`` their
+    devices."""
+    view = compute_sharding(sharding)
+    split = model_split_dim(sharding)
+    out = []
+    for row, devs in zip(groups, group_devs):
+        for m, pos in enumerate(row):
+            if split is None and m:
+                break
+            src = (region(view.shard_index(pos, shape), shape), devs[m])
+            if src not in out:
+                out.append(src)
+    return out
+
+
+def reduce_scatter_plan(sharding: NamedSharding, shape, sources) -> list:
+    """The transfers that reduce-scatter one leaf's gradient: for every
+    position in position order, ``(position, device, [(source device,
+    source region, slices into the source), ...])``, the pieces that
+    position sums in that order.  Each piece goes from the device that
+    accumulated it straight to the position's device."""
+    plan = []
+    for pos in positions(sharding.mesh):
+        want = region(sharding.shard_index(pos, shape), shape)
+        pieces = []
+        for reg, dev in sources:
+            hit = overlap(reg, want)
+            if hit is not None and all(
+                    (s.stop - s.start) == (b - a) for s, (a, b) in zip(hit[0], want)):
+                pieces.append((dev, reg, hit[0]))
+        plan.append((pos, sharding.mesh.devices[pos], pieces))
+    return plan
 
 
 _local = threading.local()
@@ -331,8 +463,9 @@ def _checked(x, axes, rules, mesh) -> P:
 
 def constrain(x, logical_axes):
     """The counterpart of ``with_sharding_constraint`` against the active
-    mesh: ``x`` itself, after checking the spec (a data group of the SPMD
-    step computes with whole activations on its device)."""
+    mesh: ``x`` itself, after checking the spec (the model code splits a
+    data group's products at the reference's constrain sites itself,
+    ``train/tp.py``)."""
     mesh = active_mesh()
     if mesh is None:
         return x

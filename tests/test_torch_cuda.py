@@ -15,8 +15,8 @@ included) on the card against the same code on the CPU, and the
 launcher's decode step captured in a CUDA graph against the eager one
 (the SSM, the hybrid and a decoder LM, bit for bit), ``compressed_psum``
 over four slots of the card against the CPU, and ``launch/train.py
---mesh prod`` (one data group and sixteen, run SPMD over every card)
-against ``--mesh none``.
+--mesh prod`` (one data group and sixteen, run SPMD over every card, the
+products split over the "model" positions) against ``--mesh none``.
 
 Run on a machine with an H100 (the kernel is built for sm_90a):
 
@@ -1012,19 +1012,33 @@ def test_compressed_psum_on_card_equals_cpu(dev):
             assert torch.equal(err[i][k].cpu(), want_err[i][k])
 
 
-def test_production_mesh_on_card_equals_no_mesh(dev, capsys):
-    """``launch/train.py --mesh prod`` over every card gives ``--mesh
-    none``'s losses bit for bit on a reduced arch (``--batch 2`` is one
-    data group; the params' shards sit on the cards of their positions)."""
+def test_production_mesh_on_card_equals_no_mesh(dev, capsys, monkeypatch):
+    """``launch/train.py --mesh prod`` over every card on a reduced arch
+    (``--batch 2`` is one data group; the params' shards sit on the cards
+    of their positions).  Laid out data-only (256x1) it gives ``--mesh
+    none``'s losses bit for bit; on 16x16 the group splits its products
+    (here the vocabulary) over 16 "model" positions: the (1, 16) mesh's
+    losses bit for bit, ``--mesh none``'s within 1e-4 relative (TF32 off;
+    ``chip_smoke.py``'s ``TP_TOL``)."""
     from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     n = torch.cuda.device_count()
     args = ["--arch", "mamba2-780m", "--reduced", "--steps", "3", "--batch", "2", "--seq",
             "16", "--device", "cuda"]
-    assert train_mod.main(args + ["--mesh", "prod"]) == train_mod.main(args)
+    none = train_mod.main(args)
+    prod = train_mod.main(args + ["--mesh", "prod"])
     cards = ", ".join(f"cuda:{i}" for i in range(n))
     assert f"[mesh] 16x16 ('data', 'model') over {n} distinct device(s) ({cards})" in \
         capsys.readouterr().out
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(prod, none))
+    for model, want in ((16, prod), (1, none)):
+        with monkeypatch.context() as mp:
+            mp.setattr(train_mod, "make_production_mesh",
+                       lambda multi_pod=False, devices=None, m=model: make_mesh(
+                           256 if m == 1 else 16, model_parallel=m, devices=devices))
+            assert train_mod.main(args + ["--mesh", "prod"]) == want
 
 
 def test_production_mesh_moe_groups_on_card_equal_cpu(dev):

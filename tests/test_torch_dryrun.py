@@ -12,6 +12,9 @@ reference's ``src/repro/launch/dryrun.py``, on the CPU, every tree on
 * one step's FLOPs counted on ``meta`` against the reference's
   ``hlocost.analyze`` over its reduced train step, jitted and compiled on
   the CPU, for one arch of each family, each gap stated below;
+* ``flops_per_device``: position (0, 0)'s count, the whole step for a
+  decode cell; for a train cell, counted at two depths and carried to the
+  arch's (exact on the reduced configs);
 * ``main`` writes the reference's keys, and reports a failing cell.
 """
 import ast
@@ -161,10 +164,12 @@ def test_decode_cell_counts_and_bytes_equal_the_reference(jdryrun, arch):
     assert r["memory"]["output_bytes"] == out_bytes
     keys, memory = _reference_keys()
     assert keys <= set(r) and set(r["memory"]) == memory
-    for k in ("collective_bytes_per_device", "collective_counts", "flops_per_device",
+    for k in ("collective_bytes_per_device", "collective_counts",
               "xla_flops_per_device_uncorrected", "lower_s", "compile_s"):
         assert r[k] is None, k
     assert r["memory"]["temp_bytes"] is None and r["flops_total"] > 0
+    # the port runs a decode step whole on one device: position (0, 0) runs all of it
+    assert r["flops_per_device"] == r["flops_total"]
     whole = r["whole_cell"]
     assert whole["peak_bytes"] >= whole["argument_bytes"] > r["memory"]["argument_bytes"]
     assert r["fits_one_card"] == (whole["peak_bytes"] <= TD.CARD_BYTES)
@@ -211,6 +216,29 @@ def test_two_loss_chunks_count_alike(arch):
             params, abstract_opt_state(params),
             {"tokens": torch.empty((2, S + 1), dtype=torch.int32, device="meta")})
     assert abs(fc.get_total_flops() - want) <= 0.001 * want
+
+
+@pytest.mark.parametrize("arch", sorted(STATED_GAPS))
+def test_position_count_is_affine_in_depth(arch):
+    """``flops_per_device`` and the tensor-parallel collectives of a train
+    cell are counted at one and two layer units and carried to the arch's
+    depth: on the reduced configs, over a (2, 2) mesh, that equals the
+    count at full depth exactly; position (0, 0) runs less than its
+    group's whole step and more than a quarter of it."""
+    from repro_torch.configs.common import abstract_opt_state
+    from repro_torch.launch.mesh import make_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    spec = T_ARCHS[arch]
+    mesh = make_mesh(4, model_parallel=2, devices=(CPU,) * 4)
+    got = TD.position_count(spec, "train_4k", mesh, reduced=True)
+    assert got == TD._group_count(spec, "train_4k", mesh, True, None)
+    assert got["activations"]["all-reduce"][1] > 0
+    params, _ = spec.init(None, reduced=True, device="meta")
+    batch = {n: x[:1] for n, x in spec.input_specs("train_4k", reduced=True).items()}
+    with FlopCounterMode(display=False) as fc:
+        spec.make_train_step(reduced=True)(params, abstract_opt_state(params), batch)
+    assert fc.get_total_flops() / 4 < got["flops"] < fc.get_total_flops()
 
 
 def test_main_writes_the_reference_keys(tmp_path, capsys):

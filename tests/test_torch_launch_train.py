@@ -3,7 +3,9 @@ the two training cases of ``tests/test_system.py`` at the reference's
 sizes (the loss falls; 8 steps equal 4 steps, a checkpoint, a resume and 4
 more, within the reference's 1e-5 relative), its flags and printed lines
 against the reference launcher's, the production mesh on a one-device pool
-(``--mesh prod`` gives ``--mesh none``'s losses bit for bit; several
+(on a data-only mesh ``--mesh prod`` gives ``--mesh none``'s losses bit for
+bit; on 16x16 each group splits its products over 16 "model" positions and
+gives the (1, 16) mesh's bits, ``--mesh none``'s within 1e-5; several
 distinct devices are refused), and no card."""
 import re
 
@@ -108,21 +110,57 @@ def test_production_mesh_names_the_sharding_slice(mesh, monkeypatch, capsys):
             assert tuple(x.shards[pos].shape) == x.sharding.shard_shape(x.shape)
 
 
-def test_production_mesh_losses_equal_no_mesh_bit_for_bit(capsys):
-    """``--batch 2`` on the 16x16 mesh is one data group (16 does not
-    divide 2): ``--mesh none``'s losses bit for bit, over real shards.  On
-    the 2x16x16 mesh the same batch splits over the 2-way pod axis into
-    two groups, whose mean loss rounds otherwise: within 1e-5 relative; at
-    ``--batch 1`` it is one group again, bit for bit."""
+#: How far the 16-way split of the reduced Mamba2's products (its
+#: vocabulary) may put a loss from ``--mesh none``'s, relative, on the CPU.
+SPLIT_TOL = 1e-5
+
+
+def _meshes(monkeypatch, model):
+    """``--mesh prod``/``prod-multipod`` laid out data-only as 256/512
+    positions (``model`` 1), or as one data row of ``model`` positions a
+    pod (``(1, model)``, ``(2, 1, model)``), in place of 16x16."""
+    from repro_torch.launch.mesh import make_mesh
+
+    def make(multi_pod=False, devices=None):
+        pods = 2 if multi_pod else 1
+        n = 256 * pods if model == 1 else model * pods
+        return make_mesh(n, model_parallel=model, n_pods=pods, devices=devices)
+
+    monkeypatch.setattr(train_mod, "make_production_mesh", make)
+
+
+def _close(got, want, tol=SPLIT_TOL):
+    return len(got) == len(want) and all(abs(a - b) <= tol * abs(b) for a, b in zip(got, want))
+
+
+def test_production_mesh_losses_equal_no_mesh_bit_for_bit(capsys, monkeypatch):
+    """``--batch 2`` is one data group (16 does not divide 2).  On a
+    data-only mesh of ``--mesh prod``'s 256 positions (256x1):
+    ``--mesh none``'s losses bit for bit, over real shards; on 2x256x1 at
+    ``--batch 1``, one group again, bit for bit.  On the 16x16 mesh the
+    group splits its products over the 16 "model" positions (here the
+    vocabulary: the reduced arch's 8 mamba heads do not divide 16): the
+    losses of the same run on a (1, 16) mesh bit for bit, ``--mesh none``'s
+    within ``SPLIT_TOL``; on 2x16x16 the same batch splits over the 2-way
+    pod axis into two groups, whose mean loss rounds otherwise: within
+    ``SPLIT_TOL`` too."""
     args = ["--arch", "mamba2-780m", "--reduced", "--steps", "3", "--batch", "2", "--seq",
             "16", "--lr", "1e-3", "--device", "cpu"]
-    none = train_mod.main(args)
+    one = args[:6] + ["1"] + args[7:]
+    none, none_one = train_mod.main(args), train_mod.main(one)
     prod = train_mod.main(args + ["--mesh", "prod"])
     multi = train_mod.main(args + ["--mesh", "prod-multipod"])
-    assert prod == none  # floats: equal bits
-    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(multi, none))
-    one = args[:6] + ["1"] + args[7:]
-    assert train_mod.main(one + ["--mesh", "prod-multipod"]) == train_mod.main(one)
+    out = capsys.readouterr().out
+    assert out.count("[mesh]") == 2 and "each of the 512 positions" in out
+    assert "model axis 16: mamba heads whole (8 on 16), vocab rows 32 a position" in out
+    assert _close(prod, none) and _close(multi, none)
+    with monkeypatch.context() as mp:
+        _meshes(mp, 16)
+        assert train_mod.main(args + ["--mesh", "prod"]) == prod
+    with monkeypatch.context() as mp:
+        _meshes(mp, 1)
+        assert train_mod.main(args + ["--mesh", "prod"]) == none  # floats: equal bits
+        assert train_mod.main(one + ["--mesh", "prod-multipod"]) == none_one
     out = capsys.readouterr().out
     assert out.count("[mesh]") == 3 and "each of the 512 positions" in out
 
@@ -154,24 +192,59 @@ def test_production_mesh_places_every_leaf_by_its_sharding(capsys):
     assert f"held_bytes: 512 position(s) {want} B of params and {2 * want + 4} B" in line
 
 
-def test_production_mesh_sixteen_groups_resume(tmp_path, capsys):
+def test_production_mesh_sixteen_groups_resume(tmp_path, capsys, monkeypatch):
     """``--mesh prod --batch 16``: 16 data groups of one sequence.  A run
     stopped after 2 of 4 steps and resumed (its checkpoint gathered whole,
     then placed again) gives the unbroken run's losses bit for bit: the
     checkpoint keeps float32 exactly and the step is deterministic here.
-    The unbroken run is within 1e-5 relative of ``--mesh none``."""
+    So on a data-only 16x1 mesh, whose unbroken run is within 1e-5
+    relative of ``--mesh none``, and on the 16x16 mesh, whose groups split
+    their products over "model": its unbroken run gives the bits of the
+    same step on a (1, 16) mesh with 16 microbatches (the same slices in
+    the same order), and is within ``SPLIT_TOL`` of ``--mesh none``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import sharding as shd
+    from repro_torch.train.fault import DataSkipper
+
     args = ["--arch", "mamba2-780m", "--reduced", "--batch", "16", "--seq", "8", "--lr",
             "1e-3", "--device", "cpu", "--total-steps", "4"]
     none = train_mod.main(args + ["--steps", "4"])
     args += ["--mesh", "prod"]
-    whole = train_mod.main(args + ["--steps", "4"])
-    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
-    first = train_mod.main(args + ["--steps", "2"] + ck)
-    rest = train_mod.main(args + ["--steps", "4", "--resume"] + ck)
-    assert "resumed from step 2" in capsys.readouterr().out
-    assert first + rest == whole
-    assert len(whole) == len(none) == 4
-    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(whole, none)), (whole, none)
+
+    def resumed(path):
+        whole = train_mod.main(args + ["--steps", "4"])
+        ck = ["--ckpt-dir", str(path), "--ckpt-every", "2"]
+        first = train_mod.main(args + ["--steps", "2"] + ck)
+        rest = train_mod.main(args + ["--steps", "4", "--resume"] + ck)
+        assert "resumed from step 2" in capsys.readouterr().out
+        assert first + rest == whole
+        return whole
+
+    with monkeypatch.context() as mp:
+        mp.setattr(train_mod, "make_production_mesh",
+                   lambda multi_pod=False, devices=None: make_mesh(16, model_parallel=1,
+                                                                   devices=devices))
+        data_only = resumed(tmp_path / "data")
+    assert len(data_only) == len(none) == 4 and _close(data_only, none), (data_only, none)
+    split = resumed(tmp_path / "split")
+    assert _close(split, none), (split, none)
+
+    spec = ARCHS["mamba2-780m"]
+    mesh = make_mesh(16, model_parallel=16, devices=("cpu",))
+    params, opt = train_mod.init_train_state(spec, True, "cpu")
+    axes = spec.init(None, reduced=True, device="meta")[1]
+    params, opt = train_mod.place_on_mesh(mesh, params, opt, axes)
+    step = spec.make_train_step(AdamConfig(lr=1e-3, total_steps=4, warmup_steps=1),
+                                reduced=True, microbatch=16)
+    batch_fn = train_mod.make_batch_fn(spec, spec.cfg(True), 16, 8, "cpu")
+    skipper, row = DataSkipper(seed=0), []
+    with shd.use_mesh(mesh):
+        for _ in range(4):
+            params, opt, m = step(params, opt, batch_fn(skipper.next_batch_id()))
+            row.append(float(m["loss"]))
+    assert row == split
 
 
 def test_device_defaults_to_the_card():

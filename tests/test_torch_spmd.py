@@ -1,42 +1,47 @@
 """The port's SPMD train step (``ArchSpec.make_train_step`` on params and
 Adam state placed by ``train/sharding.py``) against the reference's
-jitted step on a (2, 2) ("data", "model") mesh of four forced host devices.
+jitted step on ("data", "model") meshes of four forced host devices.
 
-This file runs itself as a script in one subprocess with
+This file runs itself as a script in ``PARTS`` subprocesses with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``: there seeded numpy
 weights (``tests/test_torch_train_step.py``'s) and a fresh Adam state are
 placed as ``src/repro/launch/train.py:74-82`` places them and the
 reference's ``make_train_step`` runs under ``jax.jit`` for two steps, with
 that placement as its ``out_shardings``; every position's shard of every
 param, m and v leaf is saved with its index.  The port runs the same two
-steps from the same weights (``transformer.params_from_jax``) on
-``make_mesh(4, model_parallel=2)``
-over four CPU positions, and each position's shard is held to the
+steps from the same weights (``transformer.params_from_jax``) on the same
+mesh over four CPU positions, and each position's shard is held to the
 reference's ``addressable_shards`` entry for the device at that position:
 the same index slices exactly, values within 1e-5 of the largest
-magnitude; losses and ``grad_norm`` within 1e-5 relative.
+magnitude; losses and ``grad_norm`` within 1e-5 relative, on a (2, 2)
+mesh (``make_mesh(4, model_parallel=2)``), five reduced archs, in one or
+two data groups and microbatches, heads, MLP columns, experts, mamba heads
+and vocabulary split two ways.  ``tests/test_torch_spmd_split.py`` runs
+(1, 4) and ``seq_sharded`` cases through the same runner.
 
 Stated here, as in ``ROADMAP.md`` §3:
 
 * Under jax 0.9.0 the reference's ``launch/mesh.py::make_mesh`` gives a
   mesh of ``Explicit`` axes, on which its embedding gather raises
-  ``ShardingTypeError``.  The reference runs on the same (2, 2) layout of
-  the same four devices with ``Auto`` axes (GSPMD, which its
+  ``ShardingTypeError``.  The reference runs on the same layout of the
+  same four devices with ``Auto`` axes (GSPMD, which its
   ``with_sharding_constraint`` calls are written for).
 * Left to choose, GSPMD lays some leaves placed whole (``a_log``,
   ``d_skip``, ``dt_bias``) out split over "model" after a step, so the
   reference's jit is given the placement as ``out_shardings``; the port
   keeps the placement.
-* The model axis shards storage, not compute: a data group of the port
-  gathers its params whole and computes as ``--mesh none`` does at the
-  group's batch; the reference's GSPMD splits each product over "model".
-  The math is the same, the rounding is not, hence the tolerances.
+* Both packages split each constrained product over "model"; the port
+  keeps the residual stream and the norms whole on each group's first
+  position, where GSPMD splits the residual's features, and sums every
+  combine in position order.  The math is the same, the rounding is not,
+  hence the tolerances.
 * OLMoE's aux loss counts the slots routed in one forward: the port gives
   every data group the whole microbatch's expert shares
   (``layers.expert_shares``), so it is the reference's global aux, and its
   capacity is sized per batch row in both packages.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -51,24 +56,42 @@ SEQ = 12
 ADAM = dict(lr=1e-5, warmup_steps=2, total_steps=10)  # LR 5e-6 at the first step
 TOL = 1e-5
 STEPS = 2
-# (arch, global batch, microbatches, gather_params_once): B = 4 makes two
-# data groups on the 2-way data axis, B = 2 in two microbatches one
-CASES = [(a, 4, 1, False) for a in ("mamba2-780m", "zamba2-2.7b", "gemma3-4b",
-                                     "whisper-small", "olmoe-1b-7b")] + \
-        [(a, 2, 2, False) for a in ("mamba2-780m", "zamba2-2.7b", "gemma3-4b",
-                                     "whisper-small", "olmoe-1b-7b")] + \
-        [("zamba2-2.7b", 2, 2, True), ("zamba2-2.7b", 4, 2, True)]
+ARCH_NAMES = ("mamba2-780m", "zamba2-2.7b", "gemma3-4b", "whisper-small", "olmoe-1b-7b")
+# (arch, global batch, microbatches, gather_params_once, model axis, heads):
+# on the (2, 2) mesh B = 4 makes two data groups on the 2-way data axis,
+# B = 2 in two microbatches one; ``heads`` replaces the reduced config's
+# (n_heads, n_kv_heads)
+CASES = [(a, 4, 1, False, 2, None) for a in ARCH_NAMES] + \
+        [(a, 2, 2, False, 2, None) for a in ARCH_NAMES] + \
+        [("zamba2-2.7b", 2, 2, True, 2, None), ("zamba2-2.7b", 4, 2, True, 2, None)]
+#: One group over a (1, 4) mesh; two of them with heads 4 does not
+#: divide (``tests/test_torch_spmd_split.py``).
+WIDE_CASES = [(a, 2, 1, False, 4, None) for a in ARCH_NAMES] + \
+             [("whisper-small", 2, 1, False, 4, (2, 2)), ("gemma3-4b", 2, 1, False, 4, (2, 1))]
 #: Index layouts held to ``devices_indices_map`` on a (pod 2, data 2, model 1) mesh.
 INDEX_SPECS = [((8, 6), (("pod", "data"), None)), ((8, 6), ("data", "pod")),
                ((4, 6), ("pod", "model")), ((), ())]
-COLLECTIVE_CASE = ("mamba2-780m", 4, 1, False)
+COLLECTIVE_CASE = ("mamba2-780m", 4, 1, False, 2, None)
 METRICS = ("loss", "grad_norm", "lr")
 PARTS = 3  # subprocesses the reference's runs are dealt over
 
 
 def case_id(case):
-    arch, b, k, once = case
-    return f"{arch}-B{b}-k{k}" + ("-once" if once else "")
+    arch, b, k, once, model, heads = case
+    return f"{arch}-B{b}-k{k}" + ("-once" if once else "") + \
+        ("" if model == 2 else f"-1x{model}") + ("" if heads is None else f"-H{heads[0]}")
+
+
+def spec_of(archs, arch, heads):
+    """``archs[arch]`` (either package's registry), its reduced config's
+    heads replaced by ``heads = (n_heads, n_kv_heads)`` when given."""
+    spec = archs[arch]
+    if heads is None:
+        return spec
+    fields = {"n_heads": heads[0]}
+    if hasattr(spec.reduced, "n_kv_heads"):
+        fields["n_kv_heads"] = heads[1]
+    return dataclasses.replace(spec, reduced=dataclasses.replace(spec.reduced, **fields))
 
 
 def _flat(tree, prefix=""):
@@ -85,12 +108,18 @@ def _index(index) -> list:
     return [None if s == slice(None) else [s.start, s.stop] for s in index]
 
 
-def host_weights(arch) -> dict:
+def host_weights(arch, heads=None) -> dict:
     """Seeded numpy weights over the reduced arch's shapes, as the port's
     training-step tests draw them."""
-    from test_torch_train_step import _host_weights
+    from test_torch_train_step import _host_weights, numpy_weights
 
-    return _host_weights(arch)
+    if heads is None:
+        return _host_weights(arch)
+    from repro_torch.configs import ARCHS
+
+    spec = spec_of(ARCHS, arch, heads)
+    shapes, _ = spec.init(None, reduced=True, device="meta")
+    return numpy_weights(shapes, np.random.default_rng(0), spec.reduced.d_model)
 
 
 def host_batch(arch, batch, batch_id):
@@ -106,7 +135,10 @@ def host_batch(arch, batch, batch_id):
 
 
 # -- the reference, in the subprocess -------------------------------------------
-def _reference(out_dir, part, parts):
+def _reference(out_dir, part, parts, cases, cost_cases):
+    """The reference's runs of ``cases`` dealt by arch (``part`` of
+    ``parts``), and the compiled first step's ``hlocost`` of each of
+    ``cost_cases`` (lowered only where it is not also run)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType
@@ -120,35 +152,47 @@ def _reference(out_dir, part, parts):
     from repro_torch.launch import hlocost
 
     assert len(jax.devices()) == 4
-    explicit = make_mesh(4, model_parallel=2)
-    mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
-    assert (mesh.devices == explicit.devices).all() and mesh.shape == explicit.shape
-    meta = {"axis_types": [str(t) for t in explicit.axis_types], "cases": {}, "index": []}
+    meta = {"cases": {}, "index": [], "costs": {}}
+    meshes = {}
+    for model in (2, 4):
+        explicit = make_mesh(4, model_parallel=model)
+        meshes[model] = jax.make_mesh((4 // model, model), ("data", "model"),
+                                      axis_types=(AxisType.Auto,) * 2)
+        assert (meshes[model].devices == explicit.devices).all()
+        assert meshes[model].shape == explicit.shape
+        meta["axis_types"] = [str(t) for t in explicit.axis_types]
     arrays = {}
-    rep = JNS(mesh, JP())
-    for arch in list(dict.fromkeys(c[0] for c in CASES))[part::parts]:
-        params = jax.tree.map(jnp.asarray, host_weights(arch))
-        axes = ARCHS[arch].init(jax.random.PRNGKey(0), reduced=True)[1]
-        for case in [c for c in CASES if c[0] == arch]:
-            _, b, k, once = case
+    every = cases + [c for c in cost_cases if c not in cases]
+    for arch in list(dict.fromkeys(c[0] for c in every))[part::parts]:
+        for case in [c for c in every if c[0] == arch]:
+            _, b, k, once, model, heads = case
+            mesh = meshes[model]
+            rep = JNS(mesh, JP())
+            spec = spec_of(ARCHS, arch, heads)
+            params = jax.tree.map(jnp.asarray, host_weights(arch, heads))
+            axes = spec.init(jax.random.PRNGKey(0), reduced=True)[1]
             pshard = jshd.make_param_sharding(mesh, params, axes)
             oshard = {"m": pshard, "v": pshard, "step": rep}
             p = jax.device_put(params, pshard)
             st = jax.device_put(init_adam(params), oshard)
-            step = jax.jit(ARCHS[arch].make_train_step(AdamConfig(**ADAM), reduced=True,
-                                                       microbatch=k, gather_params_once=once),
+            step = jax.jit(spec.make_train_step(AdamConfig(**ADAM), reduced=True,
+                                                microbatch=k, gather_params_once=once),
                            out_shardings=(pshard, oshard, dict.fromkeys(METRICS, rep)))
             metrics = []
             with jshd.use_mesh(mesh):
-                for i in range(STEPS):
+                for i in range(STEPS if case in cases else 1):
                     batch = {n: jnp.asarray(v) for n, v in host_batch(arch, b, i).items()}
-                    if case == COLLECTIVE_CASE and i == 0:
+                    if case in cost_cases and i == 0:
                         hlo = step.lower(p, st, batch).compile().as_text()
                         cost = hlocost.analyze(hlo)
-                        meta["collectives"] = {"bytes": cost.collective_bytes,
-                                               "counts": cost.collective_counts}
-                    p, st, m = step(p, st, batch)
-                    metrics.append({n: float(v) for n, v in m.items()})
+                        meta["costs"][case_id(case)] = {
+                            "bytes": cost.collective_bytes, "counts": cost.collective_counts,
+                            "flops": cost.flops}
+                    if case in cases:
+                        p, st, m = step(p, st, batch)
+                        metrics.append({n: float(v) for n, v in m.items()})
+            if case not in cases:
+                continue
             name = case_id(case)
             index = {}
             for tree, leaves_ in (("params", p), ("m", st["m"]), ("v", st["v"])):
@@ -170,28 +214,35 @@ def _reference(out_dir, part, parts):
         json.dump(meta, f)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The reference's runs, the archs dealt over ``PARTS`` subprocesses
-    run at once: ``(meta, arrays)``."""
+def reference_runs(tmp_path_factory, script, parts) -> tuple:
+    """``script`` run as ``parts`` subprocesses at once (its
+    ``__main__`` calls :func:`_reference`): ``(meta, arrays)``."""
     out = tmp_path_factory.mktemp("spmd")
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(out), str(i),
-                               str(PARTS)], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for i in range(PARTS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(script), str(out), str(i),
+                               str(parts)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for i in range(parts)]
     for proc in procs:
         log = proc.communicate(timeout=600)[0]
         assert proc.returncode == 0, log
-    meta, arrays = {"cases": {}}, {}
-    for i in range(PARTS):
+    meta, arrays = {"cases": {}, "costs": {}}, {}
+    for i in range(parts):
         with open(out / f"ref{i}.json") as f:
             part = json.load(f)
         meta["cases"].update(part.pop("cases"))
+        meta["costs"].update(part.pop("costs"))
         meta.update(part)
         with np.load(out / f"ref{i}.npz") as z:
             arrays.update({n: z[n] for n in z.files})
     return meta, arrays
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's runs of ``CASES``, the archs dealt over ``PARTS``
+    subprocesses run at once: ``(meta, arrays)``."""
+    return reference_runs(tmp_path_factory, __file__, PARTS)
 
 
 # -- the port ------------------------------------------------------------------------
@@ -218,8 +269,8 @@ def port_steps(case, weights, mesh):
     from repro_torch.models import transformer as TT
     from repro_torch.optim.adam import AdamConfig, init_adam
 
-    arch, b, k, once = case
-    spec = ARCHS[arch]
+    arch, b, k, once, _, heads = case
+    spec = spec_of(ARCHS, arch, heads)
     params = TT.params_from_jax(weights, device="cpu")
     if mesh is None:
         opt = init_adam(params)
@@ -234,20 +285,20 @@ def port_steps(case, weights, mesh):
     return params, opt, metrics
 
 
-def mesh4():
+def mesh4(model=2):
+    """Four CPU positions, ``4 // model`` x ``model``."""
     from repro_torch.launch.mesh import make_mesh
 
-    return make_mesh(4, model_parallel=2, devices=(CPU,) * 4)
+    return make_mesh(4, model_parallel=model, devices=(CPU,) * 4)
 
 
-@pytest.mark.parametrize("case", CASES, ids=case_id)
-def test_spmd_step_matches_the_reference_shard_for_shard(reference, case):
+def _held_to_the_reference(reference, case):
     from repro_torch.train import sharding as shd
 
     meta, arrays = reference
     ref = meta["cases"][case_id(case)]
-    mesh = mesh4()
-    params, opt, metrics = port_steps(case, host_weights(case[0]), mesh)
+    mesh = mesh4(case[4])
+    params, opt, metrics = port_steps(case, host_weights(case[0], case[5]), mesh)
     for got, want in zip(metrics, ref["metrics"]):
         for n in METRICS:
             assert abs(got[n] - want[n]) <= TOL * abs(want[n]), (n, got[n], want[n])
@@ -261,6 +312,11 @@ def test_spmd_step_matches_the_reference_shard_for_shard(reference, case):
                 assert got.shape == want.shape, key
                 err = float(np.abs(got - want).max()) if got.size else 0.0
                 assert err <= TOL * max(1.0, float(np.abs(want).max(initial=0.0))), (key, err)
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_spmd_step_matches_the_reference_shard_for_shard(reference, case):
+    _held_to_the_reference(reference, case)
 
 
 def test_shard_index_matches_devices_indices_map(reference):
@@ -279,32 +335,55 @@ def test_shard_index_matches_devices_indices_map(reference):
         assert got == want, spec
 
 
+def _position_count(case):
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+
+    arch, b, _, _, model, heads = case
+    batch = {n: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype, device="meta")
+             for n, v in host_batch(arch, b, 0).items()}
+    return dryrun.position_count(spec_of(ARCHS, arch, heads), "train_4k", mesh4(model),
+                                 reduced=True, batch=batch)
+
+
 def test_dryrun_collectives_beside_the_reference_hlo(reference, capsys):
     """The dry run's count of the SPMD step's collectives, a position's
-    bytes by kind from the shard shapes, printed beside the reference's
-    compiled step on the same cell (hlocost, trip counts corrected).  The
-    gap is stated, not held: the reference also moves its tensor-parallel
-    activations and partial products, which the port's groups compute
-    whole.  What is held: the gathers are the split leaves' whole bytes
-    and the reduce-scatter their float32 shards."""
+    bytes by kind, printed beside the reference's compiled step on the
+    same cell (hlocost, trip counts corrected).  The gap is stated, not
+    held: GSPMD also splits the residual stream and moves what its
+    partitioner chooses.  What is held: the param gathers move the batch
+    axes' factor only (to the block a position computes with), the
+    reduce-scatter the float32 shards, and the tensor-parallel products'
+    collectives are counted in."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch import dryrun
     from repro_torch.train import sharding as shd
     from repro_torch.tree import leaves
 
     meta, _ = reference
-    arch, b, k, _ = COLLECTIVE_CASE
+    arch, b, k = COLLECTIVE_CASE[:3]
     spec = ARCHS[arch]
     params, axes = spec.init(None, reduced=True, device="meta")
     pshard = shd.make_param_sharding(mesh4(), params, axes)
-    got, counts = dryrun.spmd_collectives(params, pshard, k)
+    acts = _position_count(COLLECTIVE_CASE)["activations"]
+    assert acts["all-reduce"][1] > 0
+    got, counts = dryrun.spmd_collectives(params, pshard, k, activations=acts)
+
+    def act(kind, i):
+        return acts.get(kind, [0, 0])[i]
+
     split = [(x, sh) for x, sh in zip(leaves(params), leaves(pshard))
              if sh.shard_shape(x.shape) != tuple(x.shape)]
-    assert got["all-gather"] == sum(x.numel() * x.element_size() for x, _ in split)
-    assert got["reduce-scatter"] == sum(4 * math.prod(sh.shard_shape(x.shape)) for x, sh in split)
-    assert counts["all-gather"] == counts["reduce-scatter"] == len(split)
-    assert counts["all-gather"] + counts["all-reduce"] == len(leaves(params))
-    want = meta["collectives"]["bytes"]
+    gathered = [(x, shd.compute_sharding(sh).shard_shape(x.shape)) for x, sh in split
+                if sh.shard_shape(x.shape) != shd.compute_sharding(sh).shard_shape(x.shape)]
+    assert got["all-gather"] == sum(x.element_size() * math.prod(c) for x, c in gathered) \
+        + act("all-gather", 0)
+    assert got["reduce-scatter"] == sum(4 * math.prod(sh.shard_shape(x.shape))
+                                        for x, sh in split) + act("reduce-scatter", 0)
+    assert counts["all-gather"] == len(gathered) + act("all-gather", 1)
+    assert counts["reduce-scatter"] == len(split) + act("reduce-scatter", 1)
+    assert counts["all-reduce"] == len(leaves(params)) - len(split) + act("all-reduce", 1)
+    want = meta["costs"][case_id(COLLECTIVE_CASE)]["bytes"]
     with capsys.disabled():
         print(f"\n[spmd] {arch} reduced, B = {b}, (2, 2) mesh: a position's collective bytes, "
               f"port {got} against the reference's HLO {want}; total "
@@ -314,8 +393,12 @@ def test_dryrun_collectives_beside_the_reference_hlo(reference, capsys):
 
 def test_dryrun_train_cell_reports_the_spmd_collectives():
     """A train cell of the dry run reports the SPMD step's collectives on
-    the 16x16 mesh (no longer ``null``); with ``gather_params_once`` each
-    split leaf is gathered whole once a step, not once a microbatch."""
+    the 16x16 mesh (no longer ``null``): the param gathers, the gradient
+    reduce-scatter and the tensor-parallel products' collectives that
+    position (0, 0) runs (``position_count``); with
+    ``gather_params_once`` each leaf's batch axes' factor is gathered once
+    a step, not once a microbatch.  ``flops_per_device`` is position
+    (0, 0)'s count, below the whole step's."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
@@ -328,13 +411,20 @@ def test_dryrun_train_cell_reports_the_spmd_collectives():
     mesh = make_production_mesh(devices=(CPU,))
     pshard = shd.make_param_sharding(mesh, cell["params"], cell["axes"])
     k = spec.train_microbatch
-    assert (r["collective_bytes_per_device"], r["collective_counts"]) == \
-        dryrun.spmd_collectives(cell["params"], pshard, k)
-    assert r["collective_counts"]["all-gather"] > 0
-    split = sum(any(e is not None for e in sh.spec) for sh in leaves(pshard))
+    got, counts = r["collective_bytes_per_device"], r["collective_counts"]
+    params_only = dryrun.spmd_collectives(cell["params"], pshard, k)
+    acts = {kind: [got[kind] - params_only[0][kind], counts[kind] - params_only[1][kind]]
+            for kind in got}
+    assert (got, counts) == dryrun.spmd_collectives(cell["params"], pshard, k, activations=acts)
+    assert all(b >= 0 and n >= 0 for b, n in acts.values())
+    assert acts["all-gather"][1] > 0  # seq_sharded keys and values
+    assert acts["reduce-scatter"][1] > 0 and acts["all-reduce"][1] > 0
+    assert 0 < r["flops_per_device"] < r["flops_total"] / 16
+    gathered = sum(sh.shard_shape(x.shape) != shd.compute_sharding(sh).shard_shape(x.shape)
+                   for x, sh in zip(leaves(cell["params"]), leaves(pshard)))
     _, every = dryrun.spmd_collectives(cell["params"], pshard, 4)
     _, once = dryrun.spmd_collectives(cell["params"], pshard, 4, once=True)
-    assert (every["all-gather"], once["all-gather"]) == (4 * split, split)
+    assert (every["all-gather"], once["all-gather"]) == (4 * gathered, gathered)
 
 
 # -- small checks, no reference ----------------------------------------------------
@@ -406,48 +496,92 @@ def test_placement_holds_separate_shards_and_their_bytes():
             assert all(torch.equal(x.shards[p], y.shards[p]) for p in shd.positions(mesh))
 
 
+#: How far a step split over "model" may be from ``--mesh none`` on the
+#: CPU: the metrics relative, the params absolute (their largest leaves
+#: are O(1)).  The split products and combines round otherwise.
+SPLIT_TOL = 1e-5
+
+
+def _near(got, want, got_p, want_p):
+    from repro_torch.train import sharding as shd
+    from repro_torch.tree import leaves
+
+    for g, w in zip(got, want):
+        assert all(abs(g[n] - w[n]) <= SPLIT_TOL * abs(w[n]) for n in METRICS), (g, w)
+    for x, w in zip(leaves(got_p), leaves(want_p)):
+        x = shd.gather(x, CPU) if isinstance(x, shd.Sharded) else x
+        assert float((x - w).abs().max()) <= SPLIT_TOL, float((x - w).abs().max())
+
+
+def _equal(got, want):
+    """Two runs' ``(params, opt_state, metrics)`` bit for bit: metrics,
+    and every leaf of the params and moments (gathered when placed)."""
+    from repro_torch.train import sharding as shd
+    from repro_torch.tree import leaves
+
+    assert got[2] == want[2]
+
+    def whole(x):
+        return shd.gather(x, CPU) if isinstance(x, shd.Sharded) else x
+
+    for x, w in zip(leaves((got[0], got[1]["m"], got[1]["v"])),
+                    leaves((want[0], want[1]["m"], want[1]["v"]))):
+        assert torch.equal(whole(x), whole(w))
+
+
 def test_one_position_step_equals_no_mesh_bit_for_bit():
-    """A mesh of one position, and a 2x2 mesh whose batch splits into one
-    group: the step gives the unplaced step's losses and params bit for
-    bit."""
+    """A mesh of one position, and a (2, 1) mesh (data only) whose batch
+    splits into one group: the step gives the unplaced step's losses and
+    params bit for bit.  With a "model" axis of 2, the (2, 2) mesh in one
+    group gives the (1, 2) mesh's bits, and is within ``SPLIT_TOL`` of
+    the unplaced step."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.train import sharding as shd
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import tree_map
 
-    case = ("mamba2-780m", 2, 2, False)
+    case = ("mamba2-780m", 2, 2, False, 2, None)
     params, _ = ARCHS["mamba2-780m"].init(torch.Generator().manual_seed(0), reduced=True,
                                           device="cpu")
     weights = tree_map(lambda t: t.numpy(), params)
-    want_p, _, want = port_steps(case, weights, None)
-    for mesh in (make_mesh(1, model_parallel=1, devices=(CPU,)), mesh4()):
-        got_p, _, got = port_steps(case, weights, mesh)
-        assert got == want
-        for x, w in zip(leaves(got_p), leaves(want_p)):
-            assert torch.equal(shd.gather(x, CPU), w)
+    want = port_steps(case, weights, None)
+    for mesh in (make_mesh(1, model_parallel=1, devices=(CPU,)),
+                 make_mesh(2, model_parallel=1, devices=(CPU,) * 2)):
+        _equal(port_steps(case, weights, mesh), want)
+    split = port_steps(case, weights, mesh4())
+    _equal(split, port_steps(case, weights, make_mesh(2, model_parallel=2, devices=(CPU,) * 2)))
+    _near(split[2], want[2], split[0], want[0])
 
 
 def test_gather_params_once_gives_the_same_bits():
     """Gathering the "data" factor once a step or at every microbatch moves
     the same values: the steps agree bit for bit (two groups, two
-    microbatches)."""
+    microbatches), on a (2, 1) mesh and on the (2, 2) mesh, whose
+    "model" axis splits the products.  The (2, 2) step gives the bits of
+    the (1, 2) mesh with four microbatches (the same slices in the same
+    order), and is within ``SPLIT_TOL`` of the unplaced step."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import pipeline as tpipe
-    from repro_torch.optim.adam import AdamConfig
-    from repro_torch.train import sharding as shd
-    from repro_torch.tree import leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adam import AdamConfig, init_adam
 
     spec = ARCHS["gemma3-4b"]
     params, _ = spec.init(torch.Generator().manual_seed(0), reduced=True, device="cpu")
-    out = []
-    for once in (False, True):
-        p, st = place(spec, params, mesh4())
-        step = spec.make_train_step(AdamConfig(**ADAM), reduced=True, microbatch=2,
+    batch = tpipe.to_device(host_batch("gemma3-4b", 8, 0), CPU)
+
+    def one(mesh, k, once):
+        step = spec.make_train_step(AdamConfig(**ADAM), reduced=True, microbatch=k,
                                     gather_params_once=once)
-        p, st, m = step(p, st, tpipe.to_device(host_batch("gemma3-4b", 8, 0), CPU))
-        out.append(([float(m["loss"])], [shd.gather(x, CPU) for x in leaves((p, st))]))
-    assert out[0][0] == out[1][0]
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+        p, st = place(spec, params, mesh) if mesh is not None else (params, init_adam(params))
+        p, st, m = step(p, st, batch)
+        return p, st, [{n: float(v) for n, v in m.items()}]
+
+    data_only = make_mesh(2, model_parallel=1, devices=(CPU,) * 2)
+    _equal(one(data_only, 2, True), one(data_only, 2, False))
+    split = one(mesh4(), 2, True)
+    _equal(split, one(mesh4(), 2, False))
+    _equal(split, one(make_mesh(2, model_parallel=2, devices=(CPU,) * 2), 4, True))
+    want = one(None, 4, False)
+    _near(split[2], want[2], split[0], want[0])
 
 
 @pytest.mark.parametrize("case", [("mamba2-780m", 4, 1), ("gemma3-4b", 8, 2)],
@@ -456,23 +590,28 @@ def test_groups_equal_microbatches_bit_for_bit(case):
     """G data groups of ``k`` microbatches run the same passes on the same
     slices as the unplaced step with ``k G`` microbatches, and sum their
     gradients and losses in the same float32 order with the same ``1 / (k
-    G)`` scale: both steps agree bit for bit, losses, ``grad_norm``, params
-    and moments (the 2x2 mesh, two groups; an arch without MoE, whose aux
-    takes the whole microbatch's shares under a mesh)."""
+    G)`` scale: on the (2, 1) mesh (data only, two groups) both steps agree
+    bit for bit, losses, ``grad_norm``, params and moments.  On the (2, 2)
+    mesh the groups split their products over "model": its step gives the
+    bits of the (1, 2) mesh with ``k G`` microbatches, and is within
+    ``SPLIT_TOL`` of the unplaced step (archs without MoE, whose aux takes
+    the whole microbatch's shares under a mesh)."""
     from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import sharding as shd
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import tree_map
 
     arch, b, k = case
     params, _ = ARCHS[arch].init(torch.Generator().manual_seed(0), reduced=True, device="cpu")
     weights = tree_map(lambda t: t.numpy(), params)
-    assert shd.batch_groups(mesh4(), b // k)[1] == 2
-    want_p, want_st, want = port_steps((arch, b, 2 * k, False), weights, None)
-    got_p, got_st, got = port_steps((arch, b, k, False), weights, mesh4())
-    assert got == want
-    for x, w in zip(leaves((got_p, got_st["m"], got_st["v"])),
-                    leaves((want_p, want_st["m"], want_st["v"]))):
-        assert torch.equal(shd.gather(x, CPU), w)
+    data_only = make_mesh(2, model_parallel=1, devices=(CPU,) * 2)
+    assert shd.batch_groups(data_only, b // k)[1] == shd.batch_groups(mesh4(), b // k)[1] == 2
+    want = port_steps((arch, b, 2 * k, False, 1, None), weights, None)
+    _equal(port_steps((arch, b, k, False, 1, None), weights, data_only), want)
+    split = port_steps((arch, b, k, False, 2, None), weights, mesh4())
+    one_row = make_mesh(2, model_parallel=2, devices=(CPU,) * 2)
+    _equal(split, port_steps((arch, b, 2 * k, False, 2, None), weights, one_row))
+    _near(split[2], want[2], split[0], want[0])
 
 
 def test_expert_shares_reach_remat_recompute_on_another_thread():
@@ -510,4 +649,4 @@ def test_expert_shares_reach_remat_recompute_on_another_thread():
 
 
 if __name__ == "__main__":
-    _reference(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    _reference(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), CASES, [COLLECTIVE_CASE])
