@@ -7,7 +7,8 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each of which fails the run on error:
 
 1. Build the SCV SpMM kernel from ``src/repro_torch/kernels/scv_spmm/csrc``
-   with nvcc, and print the build time and ptxas's resource report.
+   with nvcc, and print the build time, ptxas's resource report and the
+   vector body's blocks an SM holds (with and without the dense branch).
 2. Hold the kernel against its plain PyTorch version on the card, on the
    composite the engine assembles for the first wave of a warm-up burst
    and on the ogbn-arxiv-scale plan, at F = 128 and
@@ -15,13 +16,16 @@ Phases, each of which fails the run on error:
    bit-exact on integer-valued values and Z; within 1e-5 of the plain
    output's largest magnitude with the GCN-normalised values and normal Z
    (the two sum in different orders).
-3. Time the kernel (whole chains and each segment launch, with each
-   segment's runs, work units, units in split runs and heaviest unit), the
-   plain version and ``torch.sparse.mm`` on the same matrix in CSR, beside
-   the least time the card's memory rate allows for the same bytes.  Run
-   the arxiv chain twice on the same inputs and require the same bits, and
-   time it with the run index rebuilt at other ``UNIT_WORK`` limits
-   (measured only; the constant does not change).
+3. Time the kernel (whole chains, one launch each, beside the earlier
+   design's times for them, and each segment launched alone, with each segment's runs,
+   work units, units in split runs and heaviest unit), the plain version
+   and ``torch.sparse.mm`` on the same matrix in CSR, beside the least
+   time the card's memory rate allows for the same bytes.  Run the arxiv
+   chain twice on the same inputs and require the same bits, and time it
+   with the run index rebuilt at other ``UNIT_WORK`` limits (measured
+   only; the constant does not change).  Split one launch's time (the
+   arxiv cap-32 segment alone, and the arxiv chain) into a grid of padding
+   units, its heaviest run, its heaviest unit and the other runs.
 4. Serve requests from the default hot-graph pool through
    ``GraphServeEngine(device="cuda")`` at gcn-paper widths (128/128/40):
    a burst through ``run()`` and an open-loop Poisson drive through the
@@ -41,10 +45,10 @@ Phases, each of which fails the run on error:
    against their plain versions on them, as in phase 2, and require two
    scalar-body launches on the same inputs to give the same bits.
 7. Time those chains: kernel, plain version, ``torch.sparse.mm``, the
-   bound, and the same chain with the dense branch off
-   (``dense_threshold=cap``); per segment, dense against gather; the T =
-   64 chains over a sweep of ``dense_threshold`` (measured only; the
-   default does not change); and the scalar body beside the vector body
+   bound, the earlier design's time, and the same chain with the dense branch off
+   (``dense_threshold=cap``); per segment, dense against gather; the
+   chains over a sweep of ``dense_threshold`` (measured only; the default
+   does not change); and the scalar body beside the vector body
    on its plans, also under the thread rule it does not keep (the widest
    block within 48 KB; measured only, and the same bits).
 8. The gcn-paper forward and 20 SGD steps of training on the 8,192-node
@@ -55,8 +59,9 @@ Phases, each of which fails the run on error:
    version (within 1e-4 of each gradient's largest magnitude), and so are
    the arxiv-scale graph's; the loss must fall; every forward and backward
    launch is counted.  The backward's dZ chain alone is timed on both
-   graphs against its bound and the plain backward it replaced
-   (``index_add_``), and held against that (1e-5).
+   graphs against its bound, the earlier design's time, ``torch.sparse.mm`` on the
+   transpose and the plain backward it replaced (``index_add_``), and held
+   against that (1e-5).
 9. The scalar body through the public op (``body="scalar"``).
 10. Streaming deltas on the arxiv-scale plan, on the card (T = 64, the
     engine's ladder (8, 32, 128)): 16 deltas of 64 edges (value updates,
@@ -930,6 +935,7 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/scv_spmm/csrc/scv_spmm.cu"
 REPLACES = "src/repro/kernels/scv_spmm/scv_spmm.py:197"
 REPLACES_DENSE = "src/repro/kernels/scv_spmm/scv_spmm.py:169"
+REPLACES_CHAIN = "src/repro/kernels/scv_spmm/scv_spmm.py:274"
 REPLACES_SCALAR = "src/repro/kernels/scv_spmm/scv_spmm.py:57"
 ARXIV_SEED = 0
 SERVE_REQUESTS = 128
@@ -939,7 +945,16 @@ SERVE_REQUESTS = 128
 REF_DENSE = (2048, 1_000_000)
 MIXED_DENSE = (8192, 4_000_000)
 UNIT_WORK_SWEEP = (512, 1024, 2048, 4096, 8192)  # arxiv chain, measured only
-DENSE_THRESHOLD_SWEEP = (64, 128, 192, 256, 384, 512, 768)  # T = 64, measured only
+DENSE_THRESHOLD_SWEEP = (64, 128, 192, 256, 384, 512, 768)  # T = 64, measured only; x4 at T = 128
+# chain ms of the earlier design (PERF.md section 6's times in brackets;
+# H100 80GB HBM3, 700 W), printed beside this run's: a vector launch per
+# capacity segment, the dense branch a scalar walk over a staged Z block
+BEFORE_MS = {
+    ("serving composite", 128): 0.0502, ("arxiv", 128): 0.4436, ("arxiv", 40): 0.3032,
+    ("2048/1000000 T=64", 128): 0.1908, ("8192/4000000 T=64", 128): 0.6631,
+    ("2048/1000000 T=128", 128): 0.2447,
+    ("dZ", "8192/4000000"): 0.6627, ("dZ", "arxiv"): 0.4432,
+}
 TRAIN_STEPS = 20
 TRAIN_LR = 2.0
 STEP_MS_BEFORE = 15.762  # 8,192/4M step with the index_add_ backward (PERF.md, H100, 700 W)
@@ -1114,6 +1129,80 @@ def threads_within_default_smem(kmod):
     return within
 
 
+def before(key) -> str:
+    """The earlier design's time for ``key`` (:data:`BEFORE_MS`), for a print."""
+    ms = BEFORE_MS.get(key)
+    return "before: not measured" if ms is None else f"before: {ms:.4f} ms"
+
+
+def sub_index(pr, units_kept):
+    """The plan-level index ``pr`` cut to the units ``units_kept`` (their
+    runs renumbered in order; a run left with one unit no longer split),
+    for timing a part of a launch (measured only).  ``None`` keeps no unit:
+    a grid of ``pr.n_units`` padding units, each returning at once (the
+    launch's fixed cost)."""
+    from repro_torch.core.scv import PlanRuns
+
+    dev = pr.units.device
+    if units_kept is None:
+        units = np.zeros((pr.n_units, 4), np.int32)
+        units[:, 2:] = -1
+        return dataclasses.replace(pr, units=torch.from_numpy(units).to(dev),
+                                   n_split_units=0)
+    units = pr.units.cpu().numpy()[units_kept].copy()
+    work = pr.unit_work[units_kept]
+    runs, run_of = np.unique(units[:, 2], return_inverse=True)
+    units[:, 2] = run_of
+    counts = np.bincount(run_of)
+    split = counts[run_of] > 1
+    units[:, 3] = -1
+    units[split, 3] = np.arange(int(split.sum()))
+    rows = pr.rows[runs]
+    return PlanRuns(
+        pieces=pr.pieces, units=torch.from_numpy(units).to(dev),
+        unit_ptr=torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(
+            np.int32)).to(dev),
+        order=torch.from_numpy(np.argsort(-work, kind="stable").astype(np.int32)).to(dev),
+        run_row=torch.from_numpy(rows.copy()).to(dev), rows=rows, unit_work=work,
+        n_segments=pr.n_segments, n_live=pr.n_live, max_nnz=pr.max_nnz,
+        n_split_units=int(split.sum()))
+
+
+def launch_floor(label, segments, n_feat, gen, dev) -> dict:
+    """Where one vector launch over ``segments`` goes (measured only): the
+    whole launch against (a) a grid of as many padding units (the fixed
+    cost of a launch), (b) its heaviest run alone (that run's units side by
+    side and their merge), (c) its heaviest unit alone (the walk, written
+    straight out, no merge) and (d) every other run (the rest of the card
+    without the hub).  Accumulate mode, as a later segment's launch ran."""
+    from repro_torch.core.scv import plan_runs
+    kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
+
+    pr = plan_runs(tuple(s.runs for s in segments))
+    z = torch.randn((segments[0].shape[1], n_feat), generator=gen).to(dev)
+    out = torch.zeros((segments[0].padded_shape[0], n_feat), device=dev)
+    vals = tuple(s.vals for s in segments)
+    ptr = pr.unit_ptr.cpu().numpy()
+    run_work = np.add.reduceat(pr.unit_work, ptr[:-1]) if pr.n_units else np.zeros(0)
+    hub = int(np.argmax(run_work))
+    hub_units = np.arange(ptr[hub], ptr[hub + 1])
+    heaviest = int(np.argmax(pr.unit_work))
+    parts = {"whole": pr, "empty grid": sub_index(pr, None),
+             "heaviest run": sub_index(pr, hub_units),
+             "heaviest unit": sub_index(pr, np.array([heaviest])),
+             "other runs": sub_index(pr, np.setdiff1d(np.arange(pr.n_units), hub_units))}
+    ms = {k: device_ms(lambda r=r: kmod.scv_spmm_chain(segments, vals, z, out, accumulate=True,
+                                                       runs=r), 20)
+          for k, r in parts.items()}
+    print(f"[floor] {label} F={n_feat}: one launch of {pr.n_units} units ({pr.n_runs} runs, "
+          f"{pr.n_split_units} in split runs): whole {ms['whole']:.4f} ms; empty grid "
+          f"{ms['empty grid']:.4f} ms; heaviest run alone ({hub_units.size} units, "
+          f"{int(run_work[hub])} work) {ms['heaviest run']:.4f} ms; heaviest unit alone "
+          f"({int(pr.unit_work[heaviest])} work) {ms['heaviest unit']:.4f} ms; every other run "
+          f"{ms['other runs']:.4f} ms")
+    return ms
+
+
 def with_integer_vals(plan, gen, dev):
     """``plan`` with integer values in -4..4 in every slot (sums exact in
     f32, so any order gives the same bits)."""
@@ -1280,11 +1369,15 @@ def perm_int_plan(plan):
 
 def expected_dense(plan) -> int:
     """Launches of one chain in which a tile takes the dense branch, from
-    the tiles' own nnz (not from any run index)."""
+    the tiles' own nnz (not from any run index): the vector body takes a
+    chain's segments in one launch (one per ``MAX_SEGMENTS``)."""
     from repro_torch.core.scv import dense_tile_threshold
+    from repro_torch.kernels.scv_spmm.ops import chain_groups
 
-    return sum(1 for s in plan.segments
-               if s.n_tiles and int(s.nnz_in_tile.max()) > dense_tile_threshold(s.tile))
+    segs = plan.segments
+    return sum(1 for g in chain_groups(len(segs))
+               if any(segs[i].n_tiles and int(segs[i].nnz_in_tile.max())
+                      > dense_tile_threshold(segs[i].tile) for i in g))
 
 
 def stream_drive(adj, layout, dev, n_feat: int, gen) -> dict:
@@ -3261,7 +3354,7 @@ def main() -> int:
     from repro_torch.kernels.scv_spmm import ref
     kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
     from repro_torch.kernels.scv_spmm.build import load_library
-    from repro_torch.kernels.scv_spmm.ops import cached_backward, scv_spmm_plan
+    from repro_torch.kernels.scv_spmm.ops import cached_backward, chain_launches, scv_spmm_plan
     from repro_torch.launch.graph_serve import (
         build_default_engine, default_pool, make_requests, poisson_arrivals,
         run_open_loop,
@@ -3292,6 +3385,10 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "ptxas" in line:
             print(f"[build] {line.strip()}")
+    print("[build] vector-body blocks an SM holds (T, F, dense branch): " + ", ".join(
+        f"({t}, {f}, {'on' if d else 'off'}) {kmod.blocks_per_sm(t, f, d)}"
+        for t, f, d in ((64, 128, False), (64, 128, True), (64, 40, True), (128, 128, False),
+                        (128, 128, True))))
 
     # -- inputs: one serving composite and the arxiv-scale graph -----------
     cfg = gcn_paper.full
@@ -3355,7 +3452,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 3. timing ------------------------------------------------------------
-    rows = {}
+    rows, first_rows = {}, {}
     for name, (g, entries) in shapes.items():
         csr = csr_of(entries, (g.plan.padded_shape[0], g.plan.shape[1]), dev)
         big = name == "arxiv"
@@ -3369,7 +3466,8 @@ def main() -> int:
             launches = plan_launches(g.plan)
             rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=bound_ms, bound_by=bound_by)
-            print(f"[time] {name} F={f}: chain of {launches} launches {ms:.4f} ms, "
+            print(f"[time] {name} F={f}: chain of {len(g.plan.segments)} segments in "
+                  f"{launches} launch {ms:.4f} ms ({before((name, f))}), "
                   f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
                   f"torch.sparse.mm (CSR) {lib_ms:.4f} ms")
             out = torch.empty((g.plan.padded_shape[0], f), device=dev)
@@ -3393,6 +3491,9 @@ def main() -> int:
                     seg_csr = csr_of(segment_entries(s), (out.shape[0], g.plan.shape[1]), dev)
                     seg_lib = device_ms(lambda: torch.sparse.mm(seg_csr, z), 10 if big else 50)
                     extra = f", plain {seg_plain:.4f} ms, torch.sparse.mm (CSR) {seg_lib:.4f} ms"
+                    first_rows[(name, f)] = dict(ms=seg_ms, plain_ms=seg_plain,
+                                                 library_ms=seg_lib, bound_ms=seg_bound,
+                                                 bound_by="bytes")
                     del seg_csr
                 print(f"[time]   segment {j} cap {s.cap}: {s.n_tiles} tiles, "
                       f"{s.runs.n_runs} runs, nnz {int(run_nnz.sum())}, "
@@ -3430,6 +3531,11 @@ def main() -> int:
     del plan
     print(f"[units] arxiv F={cfg.d_hidden} chain by UNIT_WORK (now {unit_work}): "
           + "; ".join(sweep))
+    # where the time of a launch goes: the cap-32 segment alone (a later
+    # segment's launch of the earlier design), and the chain in one launch
+    cap32 = next(s for s in arxiv.plan.segments if s.cap == 32)
+    launch_floor("arxiv cap-32 segment", (cap32,), cfg.d_hidden, gen, dev)
+    launch_floor("arxiv chain", arxiv.plan.segments, cfg.d_hidden, gen, dev)
 
     # -- 4. serving --------------------------------------------------------------
     def plain_forward(params, g, x):
@@ -3461,7 +3567,7 @@ def main() -> int:
     engine.run()
     wall = time.perf_counter() - t0
     serve_gps = SERVE_REQUESTS / wall
-    serve_launches = kmod.launches
+    serve_launches, serve_chain = kmod.launches, kmod.chain_launches
     m = engine.metrics()
     check(serve_launches > 0, "the serving drive launched no kernel")
     check(serve_launches == m["launches"],
@@ -3472,7 +3578,7 @@ def main() -> int:
           f"plan builds {m['plan_build_seconds']:.3f} s of {wall:.3f} s, "
           f"{m['forward_captures']} forward keys, {m['forward_graphs']} captured after the "
           f"last wave in {m['forward_capture_seconds']:.3f} s, "
-          f"kernel launches {serve_launches} "
+          f"kernel launches {serve_launches} ({serve_chain} over more than one segment) "
           f"= engine launches {m['launches']}, worst rel err {worst:.2e}")
 
     rate = SERVE_RATE
@@ -3618,10 +3724,12 @@ def main() -> int:
             lib_ms = device_ms(lambda: torch.sparse.mm(csr, z), 20)
             bound_ms, bound_by = chain_bounds(plan, entries, f)
             dense_rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                         bound_ms=bound_ms, bound_by=bound_by)
-            print(f"[time] dense-block {name} F={f}: chain of {plan_launches(plan)} launches "
-                  f"{ms:.4f} ms, dense branch off {gather_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), plain {plain_ms:.4f} ms, torch.sparse.mm (CSR) {lib_ms:.4f} ms")
+                                         bound_ms=bound_ms, bound_by=bound_by,
+                                         gather_ms=gather_ms)
+            print(f"[time] dense-block {name} F={f}: chain of {len(plan.segments)} segments in "
+                  f"{plan_launches(plan)} launch {ms:.4f} ms ({before((name, f))}), dense branch "
+                  f"off {gather_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain "
+                  f"{plain_ms:.4f} ms, torch.sparse.mm (CSR) {lib_ms:.4f} ms")
             out = torch.zeros((plan.padded_shape[0], f), device=dev)
             for j, s in enumerate(plan.segments):
                 n_dense = int((s.nnz_in_tile > dense_tile_threshold(s.tile)).sum().item())
@@ -3638,14 +3746,16 @@ def main() -> int:
                       f"{int(s.nnz_in_tile.sum().item())}: dense branch {seg_ms[None]:.4f} ms, "
                       f"gather {seg_ms[s.cap]:.4f} ms")
         del csr
-        if plan.tile == 64:
-            # where the dense branch starts to pay on this card: measured only
-            z = torch.randn((plan.shape[1], cfg.d_hidden), generator=gen).to(dev)
-            nnz = np.concatenate([s.nnz_in_tile.cpu().numpy() for s in plan.segments])
-            sweep = [f"{thr}: {device_ms(lambda: scv_spmm_plan(plan, z, dense_threshold=thr), 5):.4f}"
-                     f" ms ({int((nnz > thr).sum())} dense)" for thr in DENSE_THRESHOLD_SWEEP]
-            print(f"[sweep] dense-block {name} F={cfg.d_hidden} chain by dense_threshold "
-                  f"(default {dense_tile_threshold(64)}): " + "; ".join(sweep))
+        # where the dense branch starts to pay on this card: measured only
+        z = torch.randn((plan.shape[1], cfg.d_hidden), generator=gen).to(dev)
+        nnz = np.concatenate([s.nnz_in_tile.cpu().numpy() for s in plan.segments])
+        scale = (plan.tile // 64) ** 2
+        sweep = [f"{thr}: {device_ms(lambda: scv_spmm_plan(plan, z, dense_threshold=thr), 5):.4f}"
+                 f" ms ({int((nnz > thr).sum())} dense)"
+                 for thr in (scale * t for t in DENSE_THRESHOLD_SWEEP)]
+        print(f"[sweep] dense-block {name} F={cfg.d_hidden} chain by dense_threshold "
+              f"(default {dense_tile_threshold(plan.tile)}; branch off "
+              f"{dense_rows[(name, cfg.d_hidden)]['gather_ms']:.4f} ms): " + "; ".join(sweep))
     scalar_rows = {}
     kept_rule = kmod.threads_for
     for name, plan in scalar_plans.items():
@@ -3755,12 +3865,17 @@ def main() -> int:
         check(err <= 1e-5 * scale, f"{label}: backward chain off the plain dZ by {err}")
         ms = device_ms(lambda: scv_spmm_plan(plan_t, cot), 10)
         plain_ms = device_ms(plain_dz, 5)
-        bound_ms, bound_by = chain_bounds(plan_t, plan_entries(plan_t), n_feat)
+        entries_t = plan_entries(plan_t)
+        bound_ms, bound_by = chain_bounds(plan_t, entries_t, n_feat)
+        csr_t = csr_of(entries_t, (plan_t.padded_shape[0], plan_t.shape[1]), dev)
+        lib_ms = device_ms(lambda: torch.sparse.mm(csr_t, cot[: plan_t.shape[1]]), 10)
+        del csr_t
         print(f"[train] {label} backward dZ chain F={n_feat} over the transposed plan "
               f"(tiles {[s.n_tiles for s in getattr(plan_t, 'segments', (plan_t,))]}, "
-              f"dense tiles {dense_counts(plan_t)}): {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), plain backward (index_add_) {plain_ms:.4f} ms; max err vs plain "
-              f"{err:.3e} (max |plain| {scale:.3e})")
+              f"dense tiles {dense_counts(plan_t)}): {ms:.4f} ms ({before(('dZ', label))}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}), torch.sparse.mm (CSR of the "
+              f"transpose) {lib_ms:.4f} ms, plain backward (index_add_) {plain_ms:.4f} ms; max "
+              f"err vs plain {err:.3e} (max |plain| {scale:.3e})")
 
     params8 = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
     kmod.reset_counts()
@@ -3788,8 +3903,9 @@ def main() -> int:
     train_launches, train_dense = kmod.launches, kmod.dense_launches
     forwards = 4 + 2 + TRAIN_STEPS  # timed forwards, step 0 twice, the SGD steps
     backwards = 2 + TRAIN_STEPS  # each layer's dZ: one chain over the transposed plan
-    n_dense_segs = sum(1 for c in dense_counts(mixed.plan) if c)
-    n_dense_segs_t = sum(1 for c in dense_counts(plan_t8) if c)
+    # one launch a chain: dense when a segment of it holds a dense tile
+    n_dense_segs = expected_dense(mixed.plan)
+    n_dense_segs_t = expected_dense(plan_t8)
     check(train_launches == cfg.n_layers * (forwards * plan_launches(mixed.plan)
                                             + backwards * plan_launches(plan_t8)),
           f"dense-block drive launched {train_launches} kernels")
@@ -3827,7 +3943,7 @@ def main() -> int:
     out_sc = scv_spmm_plan(sc_plan, z, body="scalar")
     torch.cuda.synchronize()
     scalar_launches = kmod.scalar_launches
-    check(scalar_launches == plan_launches(sc_plan) and kmod.launches == 0,
+    check(scalar_launches == chain_launches(sc_plan, "scalar") and kmod.launches == 0,
           f"scalar drive launched {scalar_launches} scalar, {kmod.launches} vector kernels")
     err, scale = rel_err(out_sc, ref.scv_spmm_reference_plan(sc_plan, z, body="scalar"))
     check(err <= 1e-5 * scale, f"scalar drive off the plain version: {err}")
@@ -3874,20 +3990,25 @@ def main() -> int:
     # -- 18. sharding rules, meshes, compression, the dry run -------------------------
     mesh_drive(dev, smi)
 
-    main_row = rows[("serving composite", cfg.d_hidden)]
-    dense_row = dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)]
-    scalar_row = scalar_rows[(sc_name, cfg.d_hidden)]
+    def timed(row):
+        return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
+        # row 1: the sparse branch, timed as the first segment's launch alone
         {"name": "scv_spmm_runs", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": serve_launches, "max_abs_err": max_abs_err,
-         **main_row},
-        {"name": "scv_spmm_runs dense-tile branch", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES_DENSE, "launches": train_dense, "max_abs_err": err_dense,
-         **dense_row},
+         **timed(first_rows[("serving composite", cfg.d_hidden)])},
+        # row 2: the accumulate mode, now a bucketed plan's chain in one launch
+        {"name": "scv_spmm_chain (all segments in one launch)", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES_CHAIN, "launches": serve_chain,
+         "max_abs_err": max_abs_err, **timed(rows[("serving composite", cfg.d_hidden)])},
+        {"name": "scv_spmm_runs dense-tile branch (3xTF32 mma)", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES_DENSE, "launches": train_dense,
+         "max_abs_err": err_dense, **timed(dense_rows[(f"{mixed_name} T=64", cfg.d_hidden)])},
         {"name": "scv_spmm_runs_scalar", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES_SCALAR, "launches": scalar_launches,
-         "max_abs_err": err_scalar, **scalar_row},
+         "max_abs_err": err_scalar, **timed(scalar_rows[(sc_name, cfg.d_hidden)])},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -282,7 +282,8 @@ class ShardedPlan:
 
     def span(self, p: int, q: int = 0) -> Union[SCVPlan, SCVBucketedPlan, None]:
         """Span p's chain on ``devices[p][q]``: its segments that hold an
-        entry (one launch each), or ``None`` when none does."""
+        entry (one chain, one launch of the vector body), or ``None`` when
+        none does."""
         if (p, q) not in self._placed:
             dev = self.devices[p][q]
             live = tuple(
@@ -351,7 +352,7 @@ def aggregate_sharded(sp: ShardedPlan, z: torch.Tensor) -> torch.Tensor:
     ``sp.device``, as ``aggregate_scv_plan`` does.
 
     Grid cell (p, q) runs span p's chain over feature slab q on its device:
-    one kernel launch per segment of the span that holds an entry, from an
+    one kernel launch over the span's segments that hold an entry, from an
     explicit zero output (``scv_spmm_plan(init="zeros")``), so a span owes
     no coverage and rows it does not visit stay zero.  Slab q is
     ``z[:, f0:f1]`` with ``f1 - f0 = ceil(F / fp)`` (the last narrower;

@@ -14,8 +14,9 @@ Port of ``src/repro/core/scv.py``:
   :class:`RunIndex` (block-row runs and their work units) the CUDA kernels
   schedule their blocks by.
 * :class:`SCVBucketedPlan` — one ``SCVPlan`` segment per entry-capacity
-  bucket; the kernel runs one launch per non-empty segment, chained
-  through one output tensor.
+  bucket; the vector body runs all of them in one launch over the
+  plan-level index :class:`PlanRuns` (the reference: one launch per
+  non-empty segment, chained through one output tensor).
 * :class:`DenseTiles` and :func:`split_hybrid` — the hybrid layout's
   dense part (``core.aggregate.aggregate_hybrid``).
 
@@ -478,9 +479,9 @@ class RunIndex:
     ``UNIT_WORK`` tiles plus entries (a heavier single tile is a unit of its
     own), so a hub block-row's long run is shared by several blocks.  A run
     of one unit has its strip to that unit's block alone; the units of a
-    split run each write a partial strip to scratch, and the last of them
-    to finish sums the seed and the partials in unit order, so the result
-    is deterministic.  A run's trailing zero-nnz tiles (the serving
+    split run sum their partial strips over a fixed binary tree of the
+    run's units, through scratch, and the root adds the seed, so the
+    result is deterministic.  A run's trailing zero-nnz tiles (the serving
     composite's tile-count padding) lie in no unit; a run with no entry (a
     coverage dummy) keeps one empty unit, so its strip is still written.
     The scalar body (replacing the TPU's ``_kernel_scalar``) is bound on the
@@ -504,8 +505,12 @@ class RunIndex:
     unit_work: np.ndarray  # int64[n_units] — tiles + entries of each unit (host)
     n_tiles: int
     n_split_units: int  # units of runs cut into more than one (each has a scratch slot)
-    # per (device, feature blocks): the split runs' arrival counters, zeroed
-    # once; the kernel's last block of each run sets its counter back to 0
+    # host copies of ``ptr`` and of the tiles' nnz, from which the plan-level
+    # index of a chain over several segments is built (:class:`PlanRuns`)
+    tile_ptr: np.ndarray  # int32[n_runs + 1]
+    tile_nnz: np.ndarray  # int32[n_tiles]
+    # per (device, feature blocks): the split runs' merge counters, zeroed
+    # once; the block that reads a merge-tree node's counter sets it to 0
     _counters: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
@@ -514,6 +519,12 @@ class RunIndex:
     # index, built at the first backward; one entry, keyed by the run
     # indexes of all the chain's segments (a patched segment gets a new one)
     _backward: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+    # the plan-level indexes of the chains whose first segment this index
+    # schedules (:func:`plan_runs`), keyed by the ids of all their segments'
+    # run indexes (a patched segment gets a new one)
+    _plans: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False
     )
 
@@ -548,6 +559,8 @@ class RunIndex:
             unit_work=work,
             n_tiles=nt,
             n_split_units=int(split.sum()),
+            tile_ptr=ptr,
+            tile_nnz=nnz.astype(np.int32),
         )
 
     @property
@@ -563,13 +576,14 @@ class RunIndex:
         return int(self.unit_work.max()) if self.unit_work.size else 0
 
     def counters(self, device, n_fblocks: int) -> torch.Tensor:
-        """The split runs' arrival counters for launches on ``device`` with
-        ``n_fblocks`` feature blocks: int32 ``[n_runs * n_fblocks]``, zeroed
-        when first asked for and left at zero by every launch."""
+        """The split runs' merge counters for launches on ``device`` with
+        ``n_fblocks`` feature blocks: int32 ``[n_units * n_fblocks]`` (one a
+        node of a run's merge tree, named by a unit), zeroed when first
+        asked for and left at zero by every launch."""
         key = (str(torch.device(device)), n_fblocks)
         if key not in self._counters:
             self._counters[key] = torch.zeros(
-                self.n_runs * n_fblocks, dtype=torch.int32, device=device
+                self.n_units * n_fblocks, dtype=torch.int32, device=device
             )
         return self._counters[key]
 
@@ -610,6 +624,8 @@ class RunIndex:
             unit_work=np.zeros(n_units, np.int64),
             n_tiles=n_tiles,
             n_split_units=min(n_units, 3 * work // UNIT_WORK),
+            tile_ptr=np.zeros(n_runs + 1, np.int32),
+            tile_nnz=np.zeros(n_tiles, np.int32),
         )
 
     def load(self, runs: "RunIndex") -> None:
@@ -638,6 +654,263 @@ class RunIndex:
         empty)."""
         self.units[:, 2].fill_(-1)
         self.order.zero_()
+
+
+def _live_ranges(runs: "RunIndex"):
+    """Each run of one segment's index as the span the kernel walks: its
+    block-row, first tile, the end of its last tile holding an entry (a run
+    with none: its first tile), and the span's work (tiles + entries)."""
+    ptr = runs.tile_ptr.astype(np.int64)
+    nnz = runs.tile_nnz.astype(np.int64)
+    starts = ptr[:-1]
+    last_live = np.maximum.reduceat(np.where(nnz > 0, np.arange(1, nnz.size + 1), 0), starts)
+    ends = np.maximum(last_live, starts)
+    cw = np.concatenate([[0], np.cumsum(1 + nnz)])
+    return runs.rows.astype(np.int64), starts, ends, cw[ends] - cw[starts]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanRuns:
+    """The schedule of one vector-body launch over all the segments of a
+    chain (port-only): a bucketed plan's segments, a span's, or one segment
+    alone.
+
+    A run is one block-row across every segment: the segments' runs of
+    that row, in segment order, each cut to the tiles up to its last entry.
+    A run is cut into work units of at most ``UNIT_WORK`` tiles + entries
+    (a heavier tile is a unit of its own), walked in segment then tile
+    order; a unit is a list of *pieces*, each a span of one segment's
+    tiles.  So a light block-row's tiles of every capacity segment are one
+    unit and one block, and its strip is written once; the units of a
+    heavy run sum their partial strips over a fixed binary tree of the
+    run's units and the root adds the seed
+    (``csrc/scv_spmm.cu::finish_unit``), as a segment's own split runs do.
+    A run whose segments' runs hold no entry keeps one unit of no piece,
+    so its strip is still written.  Units launch heaviest first, over the
+    whole chain.
+
+    Built on the host from the segments' :class:`RunIndex` host copies
+    (:meth:`of`), cached per chain by :func:`plan_runs`; a captured
+    forward loads it into tables sized from the segments' shapes
+    (:meth:`padded`, :meth:`load`).  No kernel reads ``rows``.
+    """
+
+    pieces: torch.Tensor  # int32[n_pieces, 4] — segment, first tile, end tile, 0
+    # int32[n_units, 4] — first piece, end piece, run, scratch slot (-1: run not split)
+    units: torch.Tensor
+    unit_ptr: torch.Tensor  # int32[n_runs + 1] — first unit of each run, then n_units
+    order: torch.Tensor  # int32[n_units] — launch order of the units, heaviest first
+    run_row: torch.Tensor  # int32[n_runs] — block-row of each run
+    rows: np.ndarray  # int32[n_runs] — host copy of run_row
+    unit_work: np.ndarray  # int64[n_units] — tiles + entries of each unit (host)
+    n_segments: int
+    n_live: int  # segments with tiles
+    max_nnz: int  # the fullest tile of any segment
+    n_split_units: int  # units of runs cut into more than one (each has a scratch slot)
+    _counters: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
+
+    @classmethod
+    def of(cls, runs, device=None, limit: Optional[int] = None) -> "PlanRuns":
+        """The plan-level index over the segments whose run indexes are
+        ``runs`` (in segment order), with units of at most ``limit`` work
+        (default ``UNIT_WORK``)."""
+        limit = UNIT_WORK if limit is None else limit
+        parts = [(k,) + _live_ranges(r) for k, r in enumerate(runs) if r.n_tiles]
+        if parts:
+            row, seg, b, e, w = (np.concatenate(a) for a in zip(*(
+                (rw, np.full(rw.size, k), bb, ee, ww) for k, rw, bb, ee, ww in parts)))
+        else:
+            row = seg = b = e = w = np.zeros(0, np.int64)
+        by = np.lexsort((seg, row))  # block-row, then segment
+        row, seg, b, e, w = row[by], seg[by], b[by], e[by], w[by]
+        run_rows, run_of = np.unique(row, return_inverse=True)
+        n_runs = run_rows.size
+        run_work = np.bincount(run_of, weights=w, minlength=n_runs).astype(np.int64)
+        cut = run_work > limit
+        # light runs: one unit, its pieces the run's live spans
+        keep = (e > b) & ~cut[run_of]
+        pieces = [np.stack([seg[keep], b[keep], e[keep]], 1)]
+        light = np.flatnonzero(~cut)
+        kept_run = run_of[keep]
+        units = [np.stack([np.searchsorted(kept_run, light),
+                           np.searchsorted(kept_run, light, "right"),
+                           light, np.zeros(light.size, np.int64)], 1)]
+        work = [run_work[light]]
+        n_p = int(keep.sum())
+        for r in np.flatnonzero(cut):  # few runs: the hubs
+            live = np.flatnonzero((run_of == r) & (e > b))
+            tile_work = np.concatenate([1 + runs[seg[i]].tile_nnz[b[i]:e[i]].astype(np.int64)
+                                        for i in live])
+            bound = np.concatenate([[0], np.cumsum(e[live] - b[live])])
+            cw = np.concatenate([[0], np.cumsum(tile_work)])
+            lo, n, sub = 0, tile_work.size, 0
+            while lo < n:
+                hi = int(np.searchsorted(cw, cw[lo] + limit, side="right")) - 1
+                hi = min(max(hi, lo + 1), n)
+                own = [(int(seg[i]), int(b[i] + max(lo, bound[j]) - bound[j]),
+                        int(b[i] + min(hi, bound[j + 1]) - bound[j]))
+                       for j, i in enumerate(live) if bound[j] < hi and bound[j + 1] > lo]
+                pieces.append(np.array(own, np.int64).reshape(-1, 3))
+                units.append(np.array([[n_p, n_p + len(own), r, sub]], np.int64))
+                work.append(np.array([cw[hi] - cw[lo]], np.int64))
+                n_p += len(own)
+                lo, sub = hi, sub + 1
+        pieces, units, work = (np.concatenate(a) for a in (pieces, units, work))
+        by_run = np.lexsort((units[:, 3], units[:, 2]))  # runs in order, each run's units in order
+        units, work = units[by_run], work[by_run]
+        counts = np.bincount(units[:, 2], minlength=n_runs)
+        split = counts[units[:, 2]] > 1
+        units[:, 3] = -1
+        units[split, 3] = np.arange(int(split.sum()))
+        pieces = np.concatenate([pieces, np.zeros((pieces.shape[0], 1), np.int64)], 1)
+        return cls(
+            pieces=_tensor(pieces.astype(np.int32), device),
+            units=_tensor(units.astype(np.int32), device),
+            unit_ptr=_tensor(np.searchsorted(units[:, 2], np.arange(n_runs + 1)).astype(np.int32),
+                             device),
+            order=_tensor(np.argsort(-work, kind="stable").astype(np.int32), device),
+            run_row=_tensor(run_rows.astype(np.int32), device),
+            rows=run_rows.astype(np.int32),
+            unit_work=work,
+            n_segments=len(runs),
+            n_live=len(parts),
+            max_nnz=max((r.max_nnz for r in runs), default=0),
+            n_split_units=int(split.sum()),
+        )
+
+    @property
+    def n_runs(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def n_units(self) -> int:
+        return int(self.unit_work.shape[0])
+
+    @property
+    def n_pieces(self) -> int:
+        return int(self.pieces.shape[0])
+
+    @property
+    def max_unit_work(self) -> int:
+        return int(self.unit_work.max()) if self.unit_work.size else 0
+
+    def counters(self, device, n_fblocks: int) -> torch.Tensor:
+        """The split runs' merge counters (as :meth:`RunIndex.counters`)."""
+        key = (str(torch.device(device)), n_fblocks)
+        if key not in self._counters:
+            self._counters[key] = torch.zeros(
+                self.n_units * n_fblocks, dtype=torch.int32, device=device
+            )
+        return self._counters[key]
+
+    @classmethod
+    def padded(cls, shapes, n_row_blocks: int, device) -> "PlanRuns":
+        """Tables sized from the segments' shapes alone (``shapes``: each
+        segment's ``(n_tiles, cap)``, in order), for a launch captured in a
+        CUDA graph: the index of any chain over segments of those shapes
+        and ``n_row_blocks`` block-rows fits them, and :meth:`load` copies
+        it in.  With ``W`` the most work such segments hold (``sum n_tiles
+        * (1 + cap)``) and ``L = UNIT_WORK``: at most ``n_row_blocks`` runs;
+        fewer than ``n_runs + 2 W / L`` units (two consecutive units of a
+        cut run hold more than ``L``) and never more than tiles, fewer than
+        ``3 W / L`` of them in split runs; at most one piece per (segment,
+        run) plus one per cut.  ``max_nnz`` is the largest cap, so a launch
+        keeps room for the dense branch whenever a tile could take it.
+        Units past the loaded ones have run -1: the kernel returns from
+        them at once."""
+        n_tiles = sum(nt for nt, _ in shapes)
+        n_runs = min(n_tiles, n_row_blocks)
+        work = sum(nt * (1 + cap) for nt, cap in shapes)
+        n_units = max(1, min(n_tiles, n_runs + 2 * work // UNIT_WORK))
+        n_pieces = sum(min(nt, n_row_blocks) for nt, _ in shapes) + n_units
+        pad = np.zeros((n_units, 4), np.int32)
+        pad[:, 2:] = -1
+        return cls(
+            pieces=_tensor(np.zeros((n_pieces, 4), np.int32), device),
+            units=_tensor(pad, device),
+            unit_ptr=_tensor(np.zeros(n_runs + 1, np.int32), device),
+            order=_tensor(np.arange(n_units, dtype=np.int32), device),
+            run_row=_tensor(np.zeros(n_runs, np.int32), device),
+            rows=np.arange(n_runs, dtype=np.int32),
+            unit_work=np.zeros(n_units, np.int64),
+            n_segments=len(shapes),
+            n_live=sum(1 for nt, _ in shapes if nt),
+            max_nnz=max((int(cap) for _, cap in shapes), default=0),
+            n_split_units=min(n_units, 3 * work // UNIT_WORK),
+        )
+
+    def load(self, runs: "PlanRuns") -> None:
+        """Copy ``runs`` into these padded tables (:meth:`padded`), in place
+        on the current stream: its pieces, units, runs and launch order,
+        then units of run -1 for the rest of the grid, the launch order
+        pointing past ``runs``'s units at one of them.  Raises if ``runs``
+        does not fit."""
+        if (runs.n_segments != self.n_segments or runs.n_units > self.n_units
+                or runs.n_runs > self.n_runs or runs.n_pieces > self.n_pieces
+                or runs.n_split_units > self.n_split_units):
+            raise ValueError(
+                f"plan run index of {runs.n_segments} segments, {runs.n_runs} runs, "
+                f"{runs.n_units} units ({runs.n_split_units} split), {runs.n_pieces} pieces "
+                f"does not fit tables for {self.n_segments} segments, {self.n_runs} runs, "
+                f"{self.n_units} units ({self.n_split_units} split), {self.n_pieces} pieces"
+            )
+        n, k = runs.n_units, runs.n_runs
+        self.pieces[: runs.n_pieces].copy_(runs.pieces)
+        self.units[:n].copy_(runs.units)
+        self.units[n:, 2].fill_(-1)
+        self.unit_ptr[: k + 1].copy_(runs.unit_ptr)
+        self.run_row[:k].copy_(runs.run_row)
+        self.order[:n].copy_(runs.order)
+        self.order[n:].fill_(n)
+
+    def clear(self) -> None:
+        """Make every unit of these padded tables padding: a launch over
+        them writes nothing."""
+        self.units[:, 2].fill_(-1)
+        self.order.zero_()
+
+
+#: Chains a run index keeps plan-level indexes for (:func:`plan_runs`).
+_PLANS_KEPT = 4
+
+
+def plan_runs(runs) -> PlanRuns:
+    """The :class:`PlanRuns` of a chain over segments whose run indexes
+    are ``runs`` (in segment order), built at its first launch and kept on
+    the first segment's run index, keyed by the identity of every one (a
+    patched segment gets a new run index, so a new plan-level index).
+    Leaves changed in place under the same run indexes leave it stale, as
+    they leave the run indexes; ``core.validate.validate_plan`` checks it."""
+    runs = tuple(runs)
+    cache = runs[0]._plans
+    key = tuple(id(r) for r in runs)
+    hit = cache.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], runs)):
+        hit = (runs, PlanRuns.of(runs, runs[0].units.device))
+        cache.pop(key, None)
+        while len(cache) >= _PLANS_KEPT:
+            cache.pop(next(iter(cache)))
+        cache[key] = hit
+    return hit[1]
+
+
+def cached_plan_runs(runs) -> Optional[PlanRuns]:
+    """The :class:`PlanRuns` that :func:`plan_runs` keeps for a chain over
+    ``runs``, or ``None`` (none built yet)."""
+    runs = tuple(runs)
+    hit = runs[0]._plans.get(tuple(id(r) for r in runs))
+    if hit is None or any(a is not b for a, b in zip(hit[0], runs)):
+        return None
+    return hit[1]
+
+
+def keep_plan_runs(runs, index: PlanRuns) -> None:
+    """Make ``index`` the plan-level index of the chain over ``runs``
+    (a captured forward's padded tables, :meth:`PlanRuns.padded`)."""
+    runs = tuple(runs)
+    runs[0]._plans[tuple(id(r) for r in runs)] = (runs, index)
 
 
 _LEAVES = ("tile_row", "tile_col", "rows", "cols", "vals", "nnz_in_tile", "perm")
@@ -807,9 +1080,10 @@ class SCVBucketedPlan:
     """Executable SCV plan split into capacity-bucket segments.
 
     Each segment holds the tiles whose nnz fits its cap.  Aggregation runs
-    one kernel launch per non-empty segment, chained through one output
-    tensor (``ops.scv_spmm_plan``): coverage dummies live in the first
-    segment only, later launches accumulate into the rows they visit.
+    the vector body once over all segments (``ops.scv_spmm_plan``, on the
+    chain's :class:`PlanRuns`), the scalar body once per non-empty
+    segment; coverage dummies live in the first segment only, so every
+    block-row is a run of the chain.
     """
 
     segments: tuple[SCVPlan, ...]

@@ -41,6 +41,12 @@ One invariant is the port's own:
   wrapper sizes shared memory and scratch from it, so an index left
   behind by a patch of the plan's arrays sends the kernel a schedule that
   no longer matches its tiles.
+  A chain's plan-level index (``core.scv.PlanRuns``, one vector launch
+  over all the segments), once a launch has built it, must equal
+  ``PlanRuns.of`` of those per-segment indexes; it is reported, as a
+  ``run-index`` failure, only when every segment's own index holds and it
+  does not (it is built from them, so a stale segment index is the fault
+  to report).
 * **transposed** — checked only once a backward has built the plan's
   transposed plan (``ops._ScvChain``): it must equal
   ``core.scv.transposed_plan`` of the plan's current leaves, leaf for
@@ -65,7 +71,9 @@ import torch
 
 from repro_torch.core.exec import ShardedPlan
 from repro_torch.core.formats import COOMatrix
-from repro_torch.core.scv import _LEAVES, RunIndex, SCVBucketedPlan, SCVPlan, SCVTiles
+from repro_torch.core.scv import (
+    _LEAVES, PlanRuns, RunIndex, SCVBucketedPlan, SCVPlan, SCVTiles, cached_plan_runs,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -512,6 +520,45 @@ def _check_run_index(p: SCVPlan, v: _PlanView, loc: dict) -> list[InvariantResul
     ]
 
 
+#: PlanRuns fields the chain's check compares (not the counters).
+PLAN_RUNS_FIELDS = (
+    "pieces", "units", "unit_ptr", "order", "run_row", "rows", "unit_work", "n_segments",
+    "n_live", "max_nnz", "n_split_units",
+)
+
+
+def _check_chain_index(segments, checks: list, loc: dict) -> list[InvariantResult]:
+    """The plan-level index a launch built for the chain over ``segments``
+    (if any) must equal the one their run indexes give; reported only when
+    every run-index check in ``checks`` held and it does not."""
+    from repro_torch.kernels.scv_spmm.ops import chain_groups
+
+    if any(c.invariant == "run-index" and not c.ok for c in checks):
+        return []
+    bad = []
+    for k, positions in enumerate(chain_groups(len(segments))):
+        group = tuple(segments[i].runs for i in positions)
+        have = cached_plan_runs(group)
+        if have is None:
+            continue
+        want = PlanRuns.of(group)
+        for name in PLAN_RUNS_FIELDS:
+            x, y = getattr(have, name), getattr(want, name)
+            if isinstance(x, int):
+                same = x == y
+            else:
+                x, y = _np(x), _np(y)
+                same = x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+            if not same:
+                bad.append(f"{name}[{k}]")
+    if not bad:
+        return []
+    return [InvariantResult(
+        "run-index", False,
+        detail=f"the chain's plan-level index disagrees with its segments' run indexes on "
+               f"{', '.join(bad)}", **loc)]
+
+
 def _check_transposed(plan, loc: dict) -> list[InvariantResult]:
     """The transposed plan a backward built for ``plan`` (if any) must
     equal the one its current leaves give."""
@@ -639,6 +686,7 @@ def validate_plan(obj: Any, coo: Optional[COOMatrix] = None) -> ValidationReport
     if isinstance(obj, SCVPlan):
         v = _PlanView.of(obj)
         checks += _validate_single(v, {}, plan=obj)
+        checks += _check_chain_index((obj,), checks, {})
         checks += _check_perm_bijection([(v, {})], {})
         checks += _check_transposed(obj, {})
         if coo is not None:
@@ -655,6 +703,7 @@ def validate_plan(obj: Any, coo: Optional[COOMatrix] = None) -> ValidationReport
             checks += _validate_single(
                 v, {"segment": j}, require_full_coverage=(j == 0), plan=seg
             )
+        checks += _check_chain_index(obj.segments, checks, {})
         checks += _check_ladder(obj.caps, [v for v, _ in views])
         checks += _check_perm_bijection(views, {})
         checks += _check_transposed(obj, {})
@@ -718,6 +767,8 @@ def _validate_sharded(sp: ShardedPlan, coo: Optional[COOMatrix]) -> ValidationRe
         for p in range(tp):
             chain = sp.span(p)
             if chain is not None:
+                checks += _check_chain_index(getattr(chain, "segments", (chain,)), checks,
+                                             {"part": p})
                 checks += _check_transposed(chain, {"part": p})
     if coo is not None:
         checks += _validate_reassembly([v for v, _ in views], coo, {})

@@ -30,8 +30,9 @@ NVCC_FLAGS = (
 class KernelLibrary:
     """The loaded library: the bound C entry points and how it was built."""
 
-    scv_spmm_runs: ctypes._CFuncPtr  # vector body (sparse and dense branches)
-    scv_spmm_runs_scalar: ctypes._CFuncPtr  # scalar body
+    scv_spmm_runs: ctypes._CFuncPtr  # vector body over a chain (sparse and dense branches)
+    scv_spmm_runs_scalar: ctypes._CFuncPtr  # scalar body over one segment
+    scv_spmm_runs_occupancy: ctypes._CFuncPtr  # vector-body blocks an SM holds
     path: Path
     build_seconds: float  # 0.0 when an existing library was loaded
     build_log: str  # nvcc / ptxas output (registers, shared memory, spills)
@@ -78,9 +79,14 @@ def load_library() -> KernelLibrary:
             seconds, log = (0.0, "") if target.exists() else _build(target)
             lib = ctypes.CDLL(str(target))
             vector, scalar = lib.scv_spmm_runs, lib.scv_spmm_runs_scalar
-            # the device pointers, the ints, then the stream
-            vector.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            occupancy = lib.scv_spmm_runs_occupancy
+            # the segment count, the segment table (five pointer arrays and
+            # the caps), the device pointers, the ints, then the stream
+            vector.argtypes = ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 5
+                               + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 9
+                               + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             scalar.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            vector.restype = scalar.restype = ctypes.c_int
-            _loaded = KernelLibrary(vector, scalar, target, seconds, log)
+            occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+            vector.restype = scalar.restype = occupancy.restype = ctypes.c_int
+            _loaded = KernelLibrary(vector, scalar, occupancy, target, seconds, log)
         return _loaded

@@ -6,12 +6,13 @@ Port of ``src/repro/kernels/scv_spmm/ops.py``:
   (host numpy, as in the reference);
 * ``scv_spmm`` — one aggregation over loose tile arrays;
 * ``scv_spmm_plan`` — one aggregation over an ``SCVPlan`` or
-  ``SCVBucketedPlan``: one kernel launch per non-empty capacity segment,
-  chained in place through one output tensor.
+  ``SCVBucketedPlan``: the vector body in one kernel launch over all the
+  capacity segments (``scv_spmm.scv_spmm_chain``; the reference launches
+  once per non-empty segment, chained through the output), the scalar
+  body one launch per non-empty segment (``scv_spmm.scv_spmm_runs``).
 
-Each launch goes through ``scv_spmm.scv_spmm_runs``, which runs the CUDA
-kernel for CUDA tensors and the plain version for CPU tensors.  Both entry
-points run their whole chain of launches inside one
+Each launch runs the CUDA kernel for CUDA tensors and the plain version
+for CPU tensors.  Both entry points run their whole chain inside one
 ``torch.autograd.Function`` (:class:`_ScvChain`), the counterpart of the
 reference's custom VJPs (``ops.py:96-192``): the output carries a
 ``grad_fn``.  The backward gives ``d/dz = Âᵀ g`` through the same kernel
@@ -25,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.scv_spmm.scv_spmm import scv_spmm_runs
+from repro_torch.kernels.scv_spmm.scv_spmm import MAX_SEGMENTS, scv_spmm_chain, scv_spmm_runs
 
 
 def ensure_row_coverage(
@@ -126,23 +127,43 @@ def _backward_data(plan) -> _Backward:
     return bw
 
 
-def _run(segs, vals, z, n_rows, zeros, body, dense_threshold) -> torch.Tensor:
-    """The launches of a chain over ``segs`` (each with its values): the
-    first seeds the strips it visits, later ones accumulate; with
-    ``zeros`` the chain starts from an explicit zero output."""
+def _run(segments, vals, z, n_rows, zeros, body, dense_threshold) -> torch.Tensor:
+    """The launches of a chain over a plan's ``segments`` (each with its
+    values): the first seeds the strips it visits, later ones accumulate;
+    with ``zeros`` (or no segment with tiles) the chain starts from an
+    explicit zero output.  The vector body takes every segment in one
+    launch (:func:`scv_spmm.scv_spmm_chain`; a plan of more than
+    ``MAX_SEGMENTS`` segments in one launch per group of them), the scalar
+    body one launch per segment with tiles."""
     out = None
-    if zeros or not segs:
+    if zeros or not any(s.n_tiles for s in segments):
         out = torch.zeros((n_rows, z.shape[1]), dtype=torch.float32, device=z.device)
-    for seg, v in zip(segs, vals):
+    if body == "vector":
+        groups = chain_groups(len(segments))
+    else:
+        groups = [(i,) for i in range(len(segments))]
+    for group in groups:
+        if not any(segments[i].n_tiles for i in group):
+            continue
         accumulate = out is not None
         if out is None:
             out = torch.empty((n_rows, z.shape[1]), dtype=torch.float32, device=z.device)
-        scv_spmm_runs(
-            seg.tile_row, seg.tile_col, seg.nnz_in_tile, seg.rows, seg.cols, v, z,
-            out, seg.runs, tile=seg.tile, accumulate=accumulate, body=body,
-            dense_threshold=dense_threshold,
-        )
+        if body == "vector":
+            scv_spmm_chain([segments[i] for i in group], [vals[i] for i in group], z, out,
+                           accumulate=accumulate, dense_threshold=dense_threshold)
+        else:
+            seg = segments[group[0]]
+            scv_spmm_runs(seg.tile_row, seg.tile_col, seg.nnz_in_tile, seg.rows, seg.cols,
+                          vals[group[0]], z, out, seg.runs, tile=seg.tile,
+                          accumulate=accumulate, body=body, dense_threshold=dense_threshold)
     return out
+
+
+def _with_vals(segments, vals):
+    """Each segment's values: those given for the segments with tiles, in
+    order, and a segment's own (never read) for the others."""
+    it = iter(vals)
+    return [next(it) if s.n_tiles else s.vals for s in segments]
 
 
 def _launched(plan):
@@ -151,6 +172,24 @@ def _launched(plan):
     seed, so the chain then starts from zeros, as the reference's does."""
     segments = getattr(plan, "segments", (plan,))
     return [s for s in segments if s.n_tiles], segments[0].n_tiles == 0
+
+
+def chain_groups(n_segments: int) -> list[range]:
+    """The segment positions each vector launch of a chain over
+    ``n_segments`` segments takes, ``MAX_SEGMENTS`` at a time (the
+    kernel's segment table)."""
+    return [range(i, min(i + MAX_SEGMENTS, n_segments))
+            for i in range(0, n_segments, MAX_SEGMENTS)]
+
+
+def chain_launches(plan, body: str = "vector") -> int:
+    """Kernel launches one chain over ``plan`` makes (:func:`_run`): the
+    vector body one per group of :func:`chain_groups` holding a segment
+    with tiles, the scalar body one per segment with tiles."""
+    segments = getattr(plan, "segments", (plan,))
+    if body != "vector":
+        return sum(1 for s in segments if s.n_tiles)
+    return sum(1 for g in chain_groups(len(segments)) if any(segments[i].n_tiles for i in g))
 
 
 class _ScvChain(torch.autograd.Function):
@@ -176,7 +215,9 @@ class _ScvChain(torch.autograd.Function):
         ctx.plan, ctx.segs = plan, segs
         ctx.run = (body, dense_threshold)
         ctx.save_for_backward(z, *vals)
-        return _run(segs, vals, z, n_rows, zeros or empty_first, body, dense_threshold)
+        segments = getattr(plan, "segments", (plan,))
+        return _run(segments, _with_vals(segments, vals), z, n_rows, zeros or empty_first,
+                    body, dense_threshold)
 
     @staticmethod
     def backward(ctx, g):
@@ -190,7 +231,8 @@ class _ScvChain(torch.autograd.Function):
         if need[5]:
             # the forward's values, gathered into the transposed slots
             plan_t = bw.plan_t.reweighted(torch.cat([v.reshape(-1) for v in vals]))
-            segs_t, empty_first = _launched(plan_t)
+            _, empty_first = _launched(plan_t)
+            segs_t = getattr(plan_t, "segments", (plan_t,))
             n_t = plan_t.padded_shape[0]
             out_t = _run(segs_t, [s.vals for s in segs_t], g, n_t, empty_first, *ctx.run)
             dz = torch.zeros_like(z)
@@ -266,12 +308,15 @@ def scv_spmm_plan(
     """``scv_spmm`` over an ``SCVPlan`` or ``SCVBucketedPlan``; returns the
     padded ``[n_rows_p, F]`` output.
 
-    One launch per non-empty segment, all writing one output tensor in
-    place.  With ``init="coverage"`` the first non-empty segment defines
-    every row (the plan builders put the coverage dummies there) and later
-    segments accumulate into the rows they visit.  ``init="zeros"`` starts
-    the chain from an explicit zero tensor instead, so rows that no segment
-    visits are defined too.  ``body`` picks the kernel body (``"vector"``
+    The vector body takes all segments in one launch (per
+    ``MAX_SEGMENTS``), the scalar body one launch per non-empty segment,
+    all writing one output tensor in place.  With ``init="coverage"`` the
+    first segment's coverage dummies make every block-row a run, so the
+    chain defines every row (the scalar body: the first non-empty segment
+    defines them and later segments accumulate into the rows they visit).
+    ``init="zeros"`` starts the chain from an explicit zero tensor instead,
+    seeding every strip from it, so rows that no segment visits are
+    defined too.  ``body`` picks the kernel body (``"vector"``
     or ``"scalar"``); ``dense_threshold`` (vector body; ``None``: the
     reference's ``dense_tile_threshold(T)``) is the nnz above which a tile
     takes the dense branch, a negative one turning the branch off.

@@ -34,16 +34,20 @@ from repro_torch.core.formats import COOMatrix, block_diag_coo
 from repro_torch.core.scv import (
     DEFAULT_TILE,
     MIN_TILE_BUCKET,
+    PlanRuns,
     RunIndex,
     SCVBucketedPlan,
     SCVPlan,
     bucket_caps_for,
     coo_to_scv_tiles,
+    keep_plan_runs,
     plan_from_tiles,
     plan_from_tiles_bucketed,
+    plan_runs,
     tile_nnz_histogram,
 )
 from repro_torch.device import capture_graph, resolve_device
+from repro_torch.kernels.scv_spmm.ops import chain_groups
 
 
 @dataclasses.dataclass
@@ -463,8 +467,9 @@ def forward_key(*trees) -> str:
 
 class _Capture:
     """One key's CUDA graph: static inputs (the parameters, the features,
-    each segment's leaves and padded run-index tables, padded edge arrays),
-    the graph, its static output, and the launches its capture recorded."""
+    each segment's leaves and padded run-index tables, each vector launch's
+    padded plan-level tables, padded edge arrays), the graph, its static
+    output, and the launches its capture recorded."""
 
     def __init__(self, forward, params, cfg, g: Graph, x: torch.Tensor, owner):
         kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
@@ -487,6 +492,14 @@ class _Capture:
             runs = RunIndex.padded(nt, s.n_row_blocks, s.cap, dev)
             segs.append(dataclasses.replace(s, **leaves, runs=runs))
         plan = SCVBucketedPlan(tuple(segs)) if isinstance(g.plan, SCVBucketedPlan) else segs[0]
+        # each vector launch's plan-level tables, sized from its segments'
+        # shapes and found by the chain through its segments' run indexes
+        self._plans = []
+        for group in chain_groups(len(segs)):
+            pr = PlanRuns.padded([(segs[i].n_tiles, segs[i].cap) for i in group],
+                                 segs[0].n_row_blocks, dev)
+            keep_plan_runs(tuple(segs[i].runs for i in group), pr)
+            self._plans.append((group, pr))
         edges = {}
         if g.rows is not None:
             n_edges = edge_capacity(g.plan)
@@ -496,8 +509,11 @@ class _Capture:
                 vals=torch.zeros((n_edges,), dtype=g.vals.dtype, device=dev),
             )
         self.g = Graph(n_nodes=g.n_nodes, plan=plan, **edges)
-        seg_of = {id(s.runs): j for j, s in enumerate(segs)}
-        self._runs: list = [None] * len(segs)  # the loaded run index per segment
+        launch_of = {id(s.runs): ("segment", j) for j, s in enumerate(segs)}
+        launch_of.update({id(pr): ("chain", k) for k, (_, pr) in enumerate(self._plans)})
+        # the run index each captured launch runs on at the next replay (a
+        # segment's, or a chain's plan-level index): None where it runs no unit
+        self._loaded: dict = {}
         self._n_edges = -1
         # the call runs eagerly on the side stream first, which also makes
         # the library's and cuBLAS's lazy state there; then the capture, on
@@ -514,7 +530,7 @@ class _Capture:
         try:
             self.out = capture_graph(self.graph, side,
                                      lambda: forward(self.params, cfg, self.g, self.x))
-            self.launches = [(seg_of[id(r)], body, threshold)
+            self.launches = [(launch_of[id(r)], body, threshold)
                              for r, body, threshold in kmod.captured[n_before:]]
         finally:
             del kmod.captured[n_before:]
@@ -528,20 +544,31 @@ class _Capture:
     def load(self, params, g: Graph, x: torch.Tensor) -> None:
         """Copy one call's inputs into the static ones, on the current
         stream, after the host checks that each launch of the forward runs
-        on a segment's run index."""
-        from repro_torch.kernels.scv_spmm.scv_spmm import check_runs
+        on its run index (each segment's, and each vector launch's
+        plan-level index over its segments)."""
+        from repro_torch.kernels.scv_spmm.scv_spmm import check_plan_runs, check_runs
 
-        for j, (s, st) in enumerate(zip(_segments(g.plan), _segments(self.g.plan))):
+        segments = _segments(g.plan)
+        for j, (s, st) in enumerate(zip(segments, _segments(self.g.plan))):
             if not s.n_tiles:  # a later segment left empty: no unit runs
-                self._runs[j] = None
+                self._loaded[("segment", j)] = None
                 st.runs.clear()
                 continue
             check_runs(s.runs, s.n_tiles, s.cap, s.n_row_blocks)
-            self._runs[j] = s.runs
+            self._loaded[("segment", j)] = s.runs
             st.runs.load(s.runs)
             for k in _PLAN_LEAVES:
                 if getattr(st, k) is not None:
                     self._copy(getattr(st, k), getattr(s, k))
+        for k, (group, pr) in enumerate(self._plans):
+            real = None
+            if any(segments[i].n_tiles for i in group):
+                real = plan_runs(tuple(segments[i].runs for i in group))
+                check_plan_runs(real, len(group), segments[0].n_row_blocks)
+                pr.load(real)
+            else:
+                pr.clear()
+            self._loaded[("chain", k)] = real
         if g.rows is not None:
             n = g.rows.shape[0]
             if n > self.g.rows.shape[0]:
@@ -560,16 +587,17 @@ class _Capture:
 
     def replay(self, params, g: Graph, x: torch.Tensor) -> torch.Tensor:
         """Load, replay, and add to the launch counts each captured launch
-        over a segment that holds tiles in ``g``, counted by the rule the
-        eager wrapper applies to that segment's run index (one over a
-        segment left empty runs no unit, and the eager chain makes none)."""
+        whose segments hold tiles in ``g``, counted by the rule the eager
+        wrapper applies to the run index it ran on (a launch over segments
+        left empty runs no unit, and the eager chain makes none)."""
         kmod = importlib.import_module("repro_torch.kernels.scv_spmm.scv_spmm")
 
         self.load(params, g, x)
         self.graph.replay()
-        for j, body, threshold in self.launches:
-            if self._runs[j] is not None:
-                kmod.add_counts(kmod.launch_counts(body, threshold, self._runs[j].max_nnz))
+        for which, body, threshold in self.launches:
+            runs = self._loaded[which]
+            if runs is not None:
+                kmod.add_counts(kmod.launch_counts(body, threshold, runs))
         return self.out.clone()
 
 
@@ -585,9 +613,10 @@ class CapturedForward:
     captures the key from the inputs of its first call: the serving engine
     calls it when no wave is queued or in flight, so no capture lands on a
     live wave.  A call on a captured key copies its tensors in, replays,
-    and returns a clone of the static output.  Each segment's run index is
-    copied into tables sized from the segment's shapes
-    (``core.scv.RunIndex.padded``), so composites of one padding bucket
+    and returns a clone of the static output.  Each segment's run index,
+    and each vector launch's plan-level index, is copied into tables sized
+    from the segments' shapes (``core.scv.RunIndex.padded``,
+    ``core.scv.PlanRuns.padded``), so composites of one padding bucket
     share one capture; its host checks run on every plan before the copy.
     The kernels' launch counts rise at every replay by the launches the
     capture recorded, each counted over the run index the replay loaded.

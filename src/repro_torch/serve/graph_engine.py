@@ -73,6 +73,7 @@ from repro_torch.core.scv import (
 )
 from repro_torch.core.validate import check_coo, validate_plan
 from repro_torch.device import resolve_device
+from repro_torch.kernels.scv_spmm.ops import chain_groups, chain_launches
 from repro_torch.models.gnn import (
     BatchedGraph,
     CapturedForward,
@@ -421,19 +422,19 @@ def assemble_batched_graph(
 
 
 def plan_launches(plan) -> int:
-    """Kernel launches one aggregation over ``plan`` costs: one per
-    non-empty capacity segment (empty segments are skipped at dispatch —
-    ``kernels/scv_spmm/ops.scv_spmm_plan``).  A placed plan launches, on
-    each of its ``feature_parts`` grid columns, one per span segment that
-    holds an entry (``core.exec.aggregate_sharded`` skips the others; the
-    reference counts every segment on every device).  Read from leaf
-    shapes and the host run indexes, so it never touches device memory.
-    The forward multiplies by ``GNNConfig.n_layers``."""
+    """Kernel launches one aggregation over ``plan`` costs: one for the
+    whole chain of capacity segments when a segment holds tiles (the vector
+    body takes them all in one launch, ``kernels/scv_spmm/ops.py::_run``;
+    the reference launches once per non-empty segment).  A placed plan
+    launches, on each of its ``feature_parts`` grid columns, one per span
+    whose segments hold an entry (``core.exec.aggregate_sharded`` skips the
+    others; the reference counts every segment on every device).  Read
+    from leaf shapes and the host run indexes, so it never touches device
+    memory.  The forward multiplies by ``GNNConfig.n_layers``."""
     if isinstance(plan, ShardedPlan):
-        live = sum(1 for spans in plan.segments for s in spans if s.runs.max_nnz > 0)
-        return live * plan.decision.feature_parts
-    segments = getattr(plan, "segments", (plan,))
-    return sum(1 for s in segments if s.n_tiles > 0)
+        live = [[s for s in span if s.runs.max_nnz > 0] for span in zip(*plan.segments)]
+        return sum(len(chain_groups(len(segs))) for segs in live) * plan.decision.feature_parts
+    return chain_launches(plan)
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.scv_spmm import ref
-from repro_torch.kernels.scv_spmm.ops import cached_backward, scv_spmm_plan
+from repro_torch.kernels.scv_spmm.ops import cached_backward, chain_launches, scv_spmm_plan
 from repro_torch.core import scv
 from repro_torch.core.formats import COOMatrix
 from repro_torch.core.scv import coo_to_scv_tiles, dense_tile_threshold, plan_from_tiles
@@ -316,11 +316,186 @@ def test_back_to_back_launches_give_identical_bits(dev, monkeypatch):
     second = scv_spmm_plan(plan, z)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
-    for s in plan.segments:
-        for c in s.runs._counters.values():
-            assert not bool(c.any())
+    chain = scv.cached_plan_runs(tuple(s.runs for s in plan.segments))
+    assert chain is not None and chain.n_split_units > 0 and chain._counters
+    for c in chain._counters.values():  # the one launch's split runs
+        assert not bool(c.any())
     want = ref.scv_spmm_reference_plan(plan, z)
     assert (first - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# one launch a chain; the dense branch on the tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+def _chain(plan):
+    return scv.plan_runs(tuple(s.runs for s in plan.segments))
+
+
+def _mixed(dev, tile, normalise=False):
+    """Eight block-rows, each with one dense tile on the diagonal (T²/4
+    entries, over the threshold of T²/16) among sparse tiles (random
+    entries, some landing on the dense tiles as duplicates); ladder (8, 32,
+    T²/2), so the dense tiles lie in the last segment.  Integer weights
+    1-3, or GCN-normalised ones."""
+    rng = np.random.default_rng(tile)
+    n = 8 * tile
+    rows, cols = [rng.integers(0, n, 2 * n)], [rng.integers(0, n, 2 * n)]
+    for b in range(8):
+        slot = rng.choice(tile * tile, tile * tile // 4, replace=False)
+        rows.append(b * tile + slot // tile)
+        cols.append(b * tile + slot % tile)
+    r, c = np.concatenate(rows).astype(np.int32), np.concatenate(cols).astype(np.int32)
+    adj = COOMatrix(r, c, rng.integers(1, 4, r.size).astype(np.float32), (n, n))
+    if normalise:
+        adj = gcn_normalize(adj)
+    return build_graph(adj, tile=tile, bucket_caps=(8, 32, tile * tile // 2), with_edges=False,
+                       device=dev).plan
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("n_feat", [128, 40, 3])
+@pytest.mark.parametrize("init", ["coverage", "zeros"])
+def test_chain_in_one_launch_bit_exact_on_integers(dev, monkeypatch, tile, n_feat, init):
+    """A dense-block graph whose dense tiles lie in a later segment, its
+    runs cut across segments into many units: one launch, dense, equal to
+    the plain chain and to the plain model of the kernel's sums bit for bit
+    on integers."""
+    monkeypatch.setattr(scv, "UNIT_WORK", 4 * tile)
+    plan = _ints(_mixed(dev, tile), tile + n_feat)
+    thr = dense_tile_threshold(tile)
+    assert plan.segments[0].runs.max_nnz <= thr < plan.segments[-1].runs.max_nnz
+    chain = _chain(plan)
+    pieces = chain.pieces.cpu().numpy()
+    units = chain.units.cpu().numpy()
+    assert chain.n_split_units > 0
+    assert any(len(set(pieces[b:e, 0])) > 1 for b, e, _, _ in units), "a unit across segments"
+    z = torch.randint(-4, 5, (plan.shape[1], n_feat),
+                      generator=torch.Generator().manual_seed(tile)).float().to(dev)
+    kmod.reset_counts()
+    got = scv_spmm_plan(plan, z, init=init)
+    torch.cuda.synchronize()
+    assert (kmod.launches, kmod.dense_launches) == (1, 1) == (plan_launches(plan),) * 2
+    want = ref.scv_spmm_reference_plan(plan, z, body="vector")
+    assert torch.equal(got, want)
+    model = ref.scv_spmm_chain_units_reference(
+        plan.segments, [s.vals for s in plan.segments], z, chain, torch.zeros_like(want),
+        accumulate=init == "zeros", dense_threshold=thr)
+    assert torch.equal(got, model)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("n_feat", [128, 40, 3])
+def test_chain_close_on_normalised_values(dev, tile, n_feat):
+    """Normalised values and normal Z: the 3xTF32 products and the sums of
+    the one launch within 1e-5 of the plain chain's largest magnitude."""
+    plan = _dense_block(dev, tile)
+    z = torch.randn((plan.shape[1], n_feat), generator=torch.Generator().manual_seed(3)).to(dev)
+    got = scv_spmm_plan(plan, z)
+    want = ref.scv_spmm_reference_plan(plan, z, body="vector")
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_chain_repeat_launches_same_bits(dev, monkeypatch, tile):
+    """Real values, dense tiles in split runs: two launches of the chain
+    give the same bits, and the split runs' counters are back at 0."""
+    monkeypatch.setattr(scv, "UNIT_WORK", 2 * tile)
+    plan = _mixed(dev, tile, normalise=True)
+    z = torch.randn((plan.shape[1], 128), generator=torch.Generator().manual_seed(9)).to(dev)
+    first, second = scv_spmm_plan(plan, z), scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    chain = _chain(plan)
+    assert chain.n_split_units > 0
+    assert all(not bool(c.any()) for c in chain._counters.values())
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_dense_tiles_in_any_entry_order(dev, tile):
+    """Each tile's live entries shuffled out of the plans' (column, row)
+    order, duplicates apart: D is then built by the staged path (equal keys
+    found within a warp), still bit for bit with the plain chain on
+    integers and the same bits twice."""
+    plan = _ints(_mixed(dev, tile), 2 * tile)
+    rng = np.random.default_rng(tile)
+
+    def shuffled(s):
+        rows, cols, vals = (a.cpu().numpy().copy() for a in (s.rows, s.cols, s.vals))
+        for t, n in enumerate(s.nnz_in_tile.cpu().numpy()):
+            p = rng.permutation(int(n))
+            rows[t, :n], cols[t, :n], vals[t, :n] = rows[t, p], cols[t, p], vals[t, p]
+        return dataclasses.replace(s, rows=torch.from_numpy(rows).to(dev),
+                                   cols=torch.from_numpy(cols).to(dev),
+                                   vals=torch.from_numpy(vals).to(dev))
+    plan = dataclasses.replace(plan, segments=tuple(shuffled(s) for s in plan.segments))
+    z = torch.randint(-4, 5, (plan.shape[1], 40),
+                      generator=torch.Generator().manual_seed(tile)).float().to(dev)
+    kmod.reset_counts()
+    first, second = scv_spmm_plan(plan, z), scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert kmod.dense_launches == 2
+    assert torch.equal(first, ref.scv_spmm_reference_plan(plan, z, body="vector"))
+    assert torch.equal(first, second)
+    zr = torch.randn((plan.shape[1], 40), generator=torch.Generator().manual_seed(1)).to(dev)
+    a, b = scv_spmm_plan(plan, zr), scv_spmm_plan(plan, zr)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_dense_tile_duplicate_runs(dev, tile):
+    """Dense tiles whose entries repeat positions in runs of 1 to 70, runs
+    crossing the 32-entry steps in which a warp reads them: each run summed
+    once into D, bit for bit with the plain chain on integers, within 1e-5
+    otherwise, the same bits twice."""
+    rng = np.random.default_rng(3 * tile)
+    n = 4 * tile
+    pos = rng.choice(tile * tile, tile * tile // 8, replace=False)
+    reps = rng.integers(1, 71, pos.size)
+    rows, cols = [], []
+    for b in range(4):
+        rows.append(b * tile + np.repeat(pos // tile, reps))
+        cols.append(b * tile + np.repeat(pos % tile, reps))
+    r, c = np.concatenate(rows).astype(np.int32), np.concatenate(cols).astype(np.int32)
+    cap = 1 << int(np.ceil(np.log2(reps.sum())))
+    for integer in (True, False):
+        vals = (rng.integers(-4, 5, r.size) if integer else rng.standard_normal(r.size))
+        adj = COOMatrix(r, c, vals.astype(np.float32), (n, n))
+        plan = build_graph(adj, tile=tile, bucket_caps=(8, cap), with_edges=False,
+                           device=dev).plan
+        assert plan.segments[-1].runs.max_nnz > dense_tile_threshold(tile)
+        z = (torch.randint(-4, 5, (n, 40), generator=torch.Generator().manual_seed(tile)).float()
+             if integer else torch.randn((n, 40), generator=torch.Generator().manual_seed(1)))
+        z = z.to(dev)
+        got, again = scv_spmm_plan(plan, z), scv_spmm_plan(plan, z)
+        want = ref.scv_spmm_reference_plan(plan, z, body="vector")
+        assert torch.equal(got, again)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_captured_dense_chain_equals_eager(dev):
+    """The captured forward over a dense-block graph (dense tiles in a later
+    segment, the plan-level tables padded) equals eager bit for bit on
+    integers, and counts one dense launch a layer at replay."""
+    from repro_torch.models.gnn import CapturedForward, Graph, gnn_forward
+
+    g = Graph(n_nodes=512, plan=_ints(_mixed(dev, 64), 11))
+    cfg = GNNConfig(name="gcn", kind="gcn", d_in=16, d_hidden=32, n_classes=4)
+    params = init_gnn(torch.Generator().manual_seed(0), cfg, device=dev)
+    x = torch.randint(-2, 3, (512, cfg.d_in), generator=torch.Generator().manual_seed(2)).float()
+    x = x.to(dev)
+    fwd = CapturedForward()
+    with torch.inference_mode():
+        want = gnn_forward(params, cfg, g, x)
+        for _ in range(2):
+            kmod.reset_counts()
+            got = fwd(params, cfg, g, x)
+            torch.cuda.synchronize()
+            assert (kmod.launches, kmod.dense_launches) == (cfg.n_layers, cfg.n_layers)
+            assert torch.equal(got, want)
+    assert (fwd.captures, fwd.replays) == (1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +516,8 @@ def test_scalar_body_split_runs_bit_exact_on_integers(dev, monkeypatch, tile, n_
         got = scv_spmm_plan(plan, z, init=init, body="scalar")
         torch.cuda.synchronize()
         assert torch.equal(got, ref.scv_spmm_reference_plan(plan, z, body="scalar"))
-    assert (kmod.scalar_launches, kmod.launches) == (2 * plan_launches(plan), 0)
+    # the scalar body: one launch a segment with tiles
+    assert (kmod.scalar_launches, kmod.launches) == (2 * chain_launches(plan, "scalar"), 0)
 
 
 def test_scalar_accumulate_over_split_runs_keeps_unvisited_rows(dev, monkeypatch):

@@ -212,9 +212,9 @@ def test_wrapper_refuses_tile_over_cap(rng):
 
 
 @pytest.mark.parametrize("n_feat,tile,body,dense,threads,opt_in", [
-    (128, 64, "vector", True, 128, True),  # strip + Z block 64 KB + 13 KB staged
-    (40, 64, "vector", True, 64, False),
-    (128, 128, "vector", True, 128, True),  # strip + Z block 128 KB: opt in
+    (128, 64, "vector", True, 128, True),  # strip 34 KB (padded) + D 17 KB + 9 KB staged
+    (40, 64, "vector", True, 64, False),  # strip 18 KB + D 17 KB + 9 KB staged
+    (128, 128, "vector", True, 128, True),  # strip 68 KB + D 66 KB: opt in
     (128, 128, "vector", False, 128, True),
     (128, 64, "vector", False, 128, False),  # strip 32 KB + 13 KB staged
     (128, 64, "scalar", False, 128, False),  # strip 32 KB + a ring of 13.5 KB
@@ -227,7 +227,7 @@ def test_threads_for_counts_dense_and_staging_memory(n_feat, tile, body, dense, 
     smem = kmod.smem_bytes(tile, threads, body, dense)
     staged = (kmod.SCALAR_STAGES * 12 * 4 * kmod.SCALAR_QUADS if body == "scalar"
               else 16 * kmod.UNIT_ENTRIES)
-    assert smem >= tile * threads * 4 * (2 if dense else 1) + staged
+    assert smem >= 4 * tile * threads + (4 * tile * tile if dense else 0) + staged  # strip, D
     assert (smem > kmod.SMEM_BYTES) == opt_in
     assert smem <= kmod.SMEM_OPT_IN_BYTES
 

@@ -316,13 +316,13 @@ def test_stale_span_run_index_fails_run_index(normalised):
 # ---------------------------------------------------------------------------
 def _count_launches(monkeypatch):
     calls = []
-    real = ops.scv_spmm_runs
+    real = ops.scv_spmm_chain  # the vector body: one launch a chain
 
     def counted(*args, **kw):
-        calls.append(args[6].shape)  # z's shape: one entry per launch
+        calls.append(args[2].shape)  # z's shape: one entry per launch
         return real(*args, **kw)
 
-    monkeypatch.setattr(ops, "scv_spmm_runs", counted)
+    monkeypatch.setattr(ops, "scv_spmm_chain", counted)
     return calls
 
 

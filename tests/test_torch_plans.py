@@ -135,7 +135,8 @@ def test_composite_plan_leaves_equal(bucketed, with_edges):
             assert a is None and b is None
             continue
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    assert teng.plan_launches(tb.graph.plan) == jeng.plan_launches(jb.graph.plan)
+    # one launch over all the segments, where the reference launches once a non-empty one
+    assert teng.plan_launches(tb.graph.plan) == min(1, jeng.plan_launches(jb.graph.plan))
 
 
 def test_composite_rejects_device_members(monkeypatch):

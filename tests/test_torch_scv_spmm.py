@@ -84,7 +84,7 @@ def test_chain_with_empty_later_segment(rng, init):
     a = _int_dense(rng, 128, 0.08)
     jp, tp = _plans(a, caps=(8, 64, 4096))
     assert tp.segments[-1].n_tiles == 0 and tp.segments[1].n_tiles > 0
-    assert plan_launches(tp) == 2
+    assert plan_launches(tp) == 1  # one launch over both non-empty segments
     z = _z(rng, 128, 8, True)
     got = ops.scv_spmm_plan(tp, torch.from_numpy(z), init=init).numpy()
     want = np.asarray(

@@ -2,8 +2,8 @@
 
 Both CUDA bodies launch one thread block per work unit: a span of one
 block-row run's tiles holding at most ``UNIT_WORK`` tiles + entries.  The
-units of a split run each sum a partial strip from zero, and the last to
-finish adds the seed and the partials in unit order.  These tests hold the
+units of a split run each sum a partial strip from zero, summed over a
+fixed binary tree of the units, and the root adds the seed.  These tests hold the
 index's invariants on single-cap, bucketed and serving-composite plans, at
 the module's ``UNIT_WORK`` and at small limits that split many runs, and
 emulate that order of summation on the plain version: on integer inputs it
@@ -173,16 +173,17 @@ def test_counters_zeroed_once_per_device_and_width(monkeypatch):
     plan, _ = _plan("bucketed", 8, monkeypatch)
     ri = _segments(plan)[0].runs
     c = ri.counters("cpu", 2)
-    assert c.dtype == torch.int32 and c.shape == (2 * ri.n_runs,) and not c.any()
+    # one a merge-tree node, named by a unit, per feature block
+    assert c.dtype == torch.int32 and c.shape == (2 * ri.n_units,) and not c.any()
     assert ri.counters(torch.device("cpu"), 2) is c  # not re-made (or re-zeroed) per launch
-    assert ri.counters("cpu", 1).shape == (ri.n_runs,)
+    assert ri.counters("cpu", 1).shape == (ri.n_units,)
     assert ri.to("cpu").counters("cpu", 2) is not c  # a moved index has its own
 
 
 def _unit_chain(plan, z, body="vector"):
     """The CUDA bodies' order of summation, on the plain version: per
-    segment and run, each unit's partial strip from zero, then the seed and
-    the partials added in unit order."""
+    segment and run, each unit's partial strip from zero, then the seed plus
+    the partials summed over the merge tree (``ref.tree_sum``)."""
     n_rows = plan.padded_shape[0]
     out = torch.zeros((n_rows, z.shape[1]))
     for seg in _segments(plan):
@@ -190,7 +191,7 @@ def _unit_chain(plan, z, body="vector"):
         units, up = seg.runs.units.numpy(), seg.runs.unit_ptr.numpy()
         for r, br in enumerate(seg.runs.rows):
             strip = slice(int(br) * T, (int(br) + 1) * T)
-            acc = out[strip].clone()
+            parts = []
             for b, e, _, _ in units[up[r]:up[r + 1]]:
                 sel = slice(int(b), int(e))
                 args = (seg.tile_row[sel], seg.tile_col[sel], seg.rows[sel], seg.cols[sel],
@@ -199,8 +200,8 @@ def _unit_chain(plan, z, body="vector"):
                 part = (ref.scv_spmm_reference(*args, **kw) if body == "scalar" else
                         ref.scv_spmm_vector_reference(
                             *args, dense_threshold=scv.dense_tile_threshold(T), **kw))
-                acc += part[strip]
-            out[strip] = acc
+                parts.append(part[strip])
+            out[strip] = out[strip] + ref.tree_sum(parts)
     return out
 
 
@@ -224,7 +225,7 @@ def test_scalar_unit_sums_equal_reference_scalar_body(tile, cap, limit, monkeypa
     """The scalar body's schedule: single-cap plans as the reference's
     kernel benchmark builds them (the bucket ladder's top cap), and with a
     cap that is no multiple of 4, whose tiles' entries start at unaligned
-    slots.  Per-unit plain sums merged in unit order equal the reference's
+    slots.  Per-unit plain sums merged over the tree equal the reference's
     ``body="scalar"`` kernel (interpret mode) bit for bit on integers."""
     if limit is not None:
         monkeypatch.setattr(scv, "UNIT_WORK", limit)
