@@ -946,14 +946,14 @@ REF_DENSE = (2048, 1_000_000)
 MIXED_DENSE = (8192, 4_000_000)
 UNIT_WORK_SWEEP = (512, 1024, 2048, 4096, 8192)  # arxiv chain, measured only
 DENSE_THRESHOLD_SWEEP = (64, 128, 192, 256, 384, 512, 768)  # T = 64, measured only; x4 at T = 128
-# chain ms of the earlier design (PERF.md section 6's times in brackets;
-# H100 80GB HBM3, 700 W), printed beside this run's: a vector launch per
-# capacity segment, the dense branch a scalar walk over a staged Z block
+# chain ms of the same kernels in an earlier run (PERF.md section 6's kernel
+# table; H100 80GB HBM3, 700 W), printed beside this run's: a drift of the
+# card or the host shows against them
 BEFORE_MS = {
-    ("serving composite", 128): 0.0502, ("arxiv", 128): 0.4436, ("arxiv", 40): 0.3032,
-    ("2048/1000000 T=64", 128): 0.1908, ("8192/4000000 T=64", 128): 0.6631,
-    ("2048/1000000 T=128", 128): 0.2447,
-    ("dZ", "8192/4000000"): 0.6627, ("dZ", "arxiv"): 0.4432,
+    ("serving composite", 128): 0.0314, ("arxiv", 128): 0.2595, ("arxiv", 40): 0.1668,
+    ("2048/1000000 T=64", 128): 0.1070, ("8192/4000000 T=64", 128): 0.6386,
+    ("2048/1000000 T=128", 128): 0.1674,
+    ("dZ", "8192/4000000"): 0.6407, ("dZ", "arxiv"): 0.2683,
 }
 TRAIN_STEPS = 20
 TRAIN_LR = 2.0
@@ -1061,6 +1061,28 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def warm_up_composite(engine_kw: dict, pool, d_in: int) -> tuple:
+    """A new engine with a warm-up burst of 32 requests queued, and the
+    burst's first wave as the engine's scheduler forms it: (engine, wave,
+    the composite graph the engine itself assembles for that wave)."""
+    from repro_torch.launch.graph_serve import build_default_engine, make_requests
+
+    warm = build_default_engine(**engine_kw)
+    for r in make_requests(np.random.default_rng(1), pool, 32, d_in):
+        warm.submit(r)
+    first = warm.scheduler.form_wave(absorb=False)
+    return warm, first, warm._batch_plan(first).graph
+
+
+def arxiv_adjacency():
+    """The ogbn-arxiv-scale graph: power-law, GCN-normalised, from
+    ``ARXIV_SEED``."""
+    from repro_torch.simul.datasets import TABLE_I, gcn_normalize, powerlaw_graph
+
+    spec = TABLE_I["arxiv"]
+    return gcn_normalize(powerlaw_graph(spec.nodes, spec.edges, seed=ARXIV_SEED))
 
 
 def segment_entries(seg) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -3362,7 +3384,7 @@ def main() -> int:
     from repro_torch.core.scv import coo_to_scv_tiles, dense_tile_threshold, plan_from_tiles
     from repro_torch.models.gnn import build_graph, gnn_forward, gnn_loss, init_gnn
     from repro_torch.serve.graph_engine import plan_launches
-    from repro_torch.simul.datasets import TABLE_I, gcn_normalize, powerlaw_edges, powerlaw_graph
+    from repro_torch.simul.datasets import TABLE_I, gcn_normalize, powerlaw_edges
     from repro_torch.tune.config import TunedConfig
 
     t_start = time.perf_counter()
@@ -3395,13 +3417,7 @@ def main() -> int:
     layout = TunedConfig()
     pool = default_pool()
     engine_kw = dict(model=cfg, device=dev, seed=0)
-    # a warm-up burst; its first wave, as the engine's scheduler forms it,
-    # gives the composite the engine itself assembles for that wave
-    warm = build_default_engine(**engine_kw)
-    for r in make_requests(np.random.default_rng(1), pool, 32, cfg.d_in):
-        warm.submit(r)
-    first = warm.scheduler.form_wave(absorb=False)
-    comp = warm._batch_plan(first).graph
+    warm, first, comp = warm_up_composite(engine_kw, pool, cfg.d_in)
     warm.scheduler.queue.requeue(first)
     warm.run()
     torch.cuda.synchronize()
@@ -3413,7 +3429,7 @@ def main() -> int:
 
     spec = TABLE_I["arxiv"]
     t0 = time.perf_counter()
-    arxiv_adj = gcn_normalize(powerlaw_graph(spec.nodes, spec.edges, seed=ARXIV_SEED))
+    arxiv_adj = arxiv_adjacency()
     t1 = time.perf_counter()
     arxiv = build_graph(arxiv_adj, config=layout, with_edges=False, device=dev)
     torch.cuda.synchronize()

@@ -331,12 +331,12 @@ def _chain(plan):
     return scv.plan_runs(tuple(s.runs for s in plan.segments))
 
 
-def _mixed(dev, tile, normalise=False):
+def _mixed(dev, tile, normalise=False, caps=None):
     """Eight block-rows, each with one dense tile on the diagonal (T²/4
     entries, over the threshold of T²/16) among sparse tiles (random
     entries, some landing on the dense tiles as duplicates); ladder (8, 32,
-    T²/2), so the dense tiles lie in the last segment.  Integer weights
-    1-3, or GCN-normalised ones."""
+    T²/2), so the dense tiles lie in the last segment, or ``caps``.
+    Integer weights 1-3, or GCN-normalised ones."""
     rng = np.random.default_rng(tile)
     n = 8 * tile
     rows, cols = [rng.integers(0, n, 2 * n)], [rng.integers(0, n, 2 * n)]
@@ -348,8 +348,8 @@ def _mixed(dev, tile, normalise=False):
     adj = COOMatrix(r, c, rng.integers(1, 4, r.size).astype(np.float32), (n, n))
     if normalise:
         adj = gcn_normalize(adj)
-    return build_graph(adj, tile=tile, bucket_caps=(8, 32, tile * tile // 2), with_edges=False,
-                       device=dev).plan
+    return build_graph(adj, tile=tile, bucket_caps=caps or (8, 32, tile * tile // 2),
+                       with_edges=False, device=dev).plan
 
 
 @pytest.mark.parametrize("tile", [64, 128])
@@ -496,6 +496,123 @@ def test_captured_dense_chain_equals_eager(dev):
             assert (kmod.launches, kmod.dense_launches) == (cfg.n_layers, cfg.n_layers)
             assert torch.equal(got, want)
     assert (fwd.captures, fwd.replays) == (1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the staging of the vector body's sparse walk: the cases any staging of a
+# unit's headers and live entry slices (synchronous, or a ring of
+# asynchronous stages) must get right
+# ---------------------------------------------------------------------------
+def _unit_entries(plan) -> int:
+    """The most live entries one work unit of ``plan``'s chain holds (host)."""
+    chain = _chain(plan)
+    pieces = chain.pieces.cpu().numpy()
+    nnz = [s.nnz_in_tile.cpu().numpy() for s in plan.segments]
+    return max(sum(int(nnz[k][b:e].sum()) for k, b, e, _ in pieces[u0:u1])
+               for u0, u1, _, _ in chain.units.cpu().numpy())
+
+
+def _with_zero_tiles(plan, seed):
+    """``plan`` with the entries of about 40% of its tiles dropped (nnz 0),
+    run indexes rebuilt: zero-nnz tiles between live ones."""
+    rng = np.random.default_rng(seed)
+    segs = []
+    for s in plan.segments:
+        nnz = s.nnz_in_tile.cpu().numpy().copy()
+        nnz[rng.random(nnz.size) < 0.4] = 0
+        segs.append(dataclasses.replace(
+            s, nnz_in_tile=torch.from_numpy(nnz).to(s.vals.device),
+            runs=scv.RunIndex.of(s.tile_row.cpu().numpy(), nnz, s.vals.device)))
+    return dataclasses.replace(plan, segments=tuple(segs))
+
+
+def _ring_case(dev, monkeypatch, case):
+    """A plan whose one vector launch makes the staging take ``case``."""
+    adj = gcn_normalize(powerlaw_graph(8192, 60_000, seed=5))
+    if case == "many stages":  # whole block-rows as units: many stagings of entries each
+        monkeypatch.setattr(scv, "UNIT_WORK", 1 << 16)
+        plan = build_graph(adj, bucket_caps=(8, 32, 128), with_edges=False, device=dev).plan
+        assert _unit_entries(plan) > 4 * kmod.UNIT_ENTRIES
+        return plan
+    if case == "caps 5 and 37":  # slices start at slots of every 16-byte phase
+        return build_graph(adj, bucket_caps=(5, 37), with_edges=False, device=dev).plan
+    if case.startswith("misaligned"):  # rows, cols, vals 1, 2, 3 words past 16 bytes, or all 3
+        words = (1, 2, 3) if case == "misaligned 1-3" else (3, 3, 3)
+        plan = build_graph(adj, bucket_caps=(37,), with_edges=False, device=dev).plan
+        return dataclasses.replace(plan, segments=tuple(dataclasses.replace(
+            s, rows=_misaligned(s.rows, words[0]), cols=_misaligned(s.cols, words[1]),
+            vals=_misaligned(s.vals, words[2])) for s in plan.segments))
+    if case == "zero tiles":
+        return _with_zero_tiles(build_graph(adj, bucket_caps=(8, 32, 128), with_edges=False,
+                                            device=dev).plan, 6)
+    if case == "split runs":
+        monkeypatch.setattr(scv, "UNIT_WORK", 96)
+        plan = _hub(dev, 64)
+        assert _split_units(plan) > 0
+        return plan
+    assert case == "dense and sparse in one window"  # the dense build, one segment
+    plan = _mixed(dev, 64, caps=(64 * 64 // 2,))
+    s = plan.segments[0]
+    nnz, rows = s.nnz_in_tile.cpu().numpy(), s.tile_row.cpu().numpy()
+    dense = nnz > dense_tile_threshold(64)
+    assert all(dense[rows == r].any() and ((nnz > 0) & ~dense)[rows == r].any()
+               for r in np.unique(rows[dense]))
+    return plan
+
+
+RING_CASES = ["many stages", "caps 5 and 37", "misaligned 1-3", "misaligned 3-3-3",
+              "zero tiles", "split runs", "dense and sparse in one window"]
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+@pytest.mark.parametrize("n_feat", [128, 40])
+def test_ring_bit_exact_on_integers(dev, monkeypatch, case, n_feat):
+    """Each case the staging must get right, bit for bit with the plain
+    chain on integers, eagerly and over the padded grid of a captured
+    launch (the run index loaded into tables sized from the shapes)."""
+    plan = _ints(_ring_case(dev, monkeypatch, case), n_feat)
+    z = torch.randint(-4, 5, (plan.shape[1], n_feat),
+                      generator=torch.Generator().manual_seed(n_feat)).float().to(dev)
+    want = ref.scv_spmm_reference_plan(plan, z, body="vector")
+    kmod.reset_counts()
+    got = scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert kmod.launches == plan_launches(plan) == 1
+    assert kmod.dense_launches == kmod.launch_counts("vector", dense_tile_threshold(64),
+                                                     _chain(plan))[1]
+    assert kmod.dense_launches or case != "dense and sparse in one window"
+    assert torch.equal(got, want)
+    segs = plan.segments
+    padded = scv.PlanRuns.padded([(s.n_tiles, s.cap) for s in segs], plan.n_row_blocks, dev)
+    padded.load(_chain(plan))
+    assert padded.n_units > _chain(plan).n_units
+    out = torch.zeros_like(want)
+    kmod.scv_spmm_chain(segs, [s.vals for s in segs], z, out, accumulate=False, runs=padded)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("case", ["many stages", "misaligned 3-3-3", "split runs",
+                                  "dense and sparse in one window"])
+def test_ring_repeat_launches_same_bits(dev, monkeypatch, case):
+    """Real values: two launches give the same bits, within 1e-5 of the
+    plain chain's largest magnitude."""
+    plan = _ring_case(dev, monkeypatch, case)
+    z = torch.randn((plan.shape[1], 128), generator=torch.Generator().manual_seed(2)).to(dev)
+    first, second = scv_spmm_plan(plan, z), scv_spmm_plan(plan, z)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = ref.scv_spmm_reference_plan(plan, z, body="vector")
+    assert (first - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_ring_keeps_blocks_per_sm(dev):
+    """The built kernel holds 4 blocks an SM at T = 64, F = 128 with the
+    dense branch off, and no fewer than its shared memory allows elsewhere."""
+    assert kmod.blocks_per_sm(64, 128, False) == 4
+    for tile, n_feat, dense, least in ((64, 128, True, 3), (64, 40, True, 5),
+                                       (128, 128, False, 3), (128, 128, True, 1)):
+        assert kmod.blocks_per_sm(tile, n_feat, dense) >= least
 
 
 # ---------------------------------------------------------------------------

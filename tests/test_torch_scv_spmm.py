@@ -242,6 +242,38 @@ def test_threads_for(n_feat, tile, threads):
     assert kmod.smem_bytes(tile, threads) <= kmod.SMEM_OPT_IN_BYTES
 
 
+# The vector body's blocks that an SM's 228 KB of shared memory holds (a
+# block's share rounded up to 128 bytes, and 1 KB reserved a block), at F =
+# 128 unless said: the strip, D with the dense branch on, 4 KB of staged
+# entries and 5 KB of headers.  A ring of asynchronous stages in place of
+# the synchronous staging must hold no fewer.
+@pytest.mark.parametrize("tile,dense,n_feat,least", [
+    (32, False, 128, 8), (64, False, 128, 5), (128, False, 128, 3),
+    (32, True, 128, 7), (64, True, 128, 3), (128, True, 128, 1), (64, True, 40, 5),
+])
+def test_ring_keeps_blocks_per_sm(tile, dense, n_feat, least):
+    threads = kmod.threads_for(n_feat, tile, "vector", dense)
+    smem = kmod.smem_bytes(tile, threads, "vector", dense)
+    assert (228 * 1024) // (-(-smem // 128) * 128 + 1024) >= least
+
+
+def test_smem_mirror_matches_the_source():
+    """``smem_bytes`` counts the C layout from the module's constants: they
+    are the source's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kmod.__file__).with_name("csrc") / "scv_spmm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert [const(n) for n in ("kEntries", "kHeaders", "kMaxSegments", "kPieces", "kStripPad",
+                               "kDensePad", "kStages", "kQuads")] == [
+        kmod.UNIT_ENTRIES, kmod.UNIT_HEADERS, kmod.MAX_SEGMENTS, kmod.SCALAR_PIECES,
+        kmod.STRIP_PAD, kmod.DENSE_PAD, kmod.SCALAR_STAGES, kmod.SCALAR_QUADS]
+
+
 def test_threads_for_refuses_oversized_tile():
     with pytest.raises(ValueError, match="shared memory"):
         kmod.threads_for(128, 2048)
